@@ -1,0 +1,105 @@
+"""The result schema of the port's backends.
+
+The port of ``repro/api/result.py``'s ``SolveStats``/``SolveResult`` and
+their converters, holding the counters the ported backends write.  The JAX
+package's deprecated dict-style access to ``stats`` is not carried over:
+read attributes (``r.stats.overflow_count``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class SolveStats:
+    """Backend-specific counters; fields a backend does not track stay 0."""
+
+    # -- spmd engine (collective-traffic accounting) --------------------------
+    overflow: bool = False
+    overflow_count: int = 0
+    control_bytes_per_round: int = 0
+    transfer_rounds: int = 0
+    transfer_bytes_total: int = 0
+    transfer_bytes_per_round: float = 0.0
+    # reduction sweeps run over whole P·lanes task batches; each launches
+    # one degree panel (the port batches the JAX package's per-lane loops)
+    reduce_sweeps: int = 0
+    # -- sequential reference -------------------------------------------------
+    pruned: int = 0
+    solutions: int = 0
+    max_depth: int = 0
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """One instance solved by one backend.
+
+    ``best_size`` is in the problem's EXTERNAL objective (``-1`` for an
+    unsatisfiable FPT decision); ``rounds`` counts supersteps for spmd and
+    expanded nodes for sequential."""
+
+    problem: str
+    backend: str
+    best_size: int
+    best_sol: Optional[np.ndarray]
+    found: bool
+    wall_s: float
+    rounds: int
+    nodes_expanded: int
+    tasks_transferred: int
+    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
+
+    def to_dict(self) -> dict:
+        """JSON-safe view (``best_sol`` as a list of packed u32 words)."""
+        d = dataclasses.asdict(self)
+        if self.best_sol is not None:
+            d["best_sol"] = [int(w) for w in np.asarray(self.best_sol, np.uint32)]
+        return d
+
+
+def from_engine_result(r, *, problem: str, backend: str = "spmd") -> SolveResult:
+    """Wrap a :class:`repro_torch.core.engine.EngineResult`."""
+    return SolveResult(
+        problem=problem,
+        backend=backend,
+        best_size=r.best_size,
+        best_sol=r.best_sol,
+        found=r.best_sol is not None,
+        wall_s=r.wall_s,
+        rounds=r.rounds,
+        nodes_expanded=r.nodes_expanded,
+        tasks_transferred=r.tasks_transferred,
+        stats=SolveStats(
+            overflow=r.overflow,
+            overflow_count=r.overflow_count,
+            control_bytes_per_round=r.control_bytes_per_round,
+            transfer_rounds=r.transfer_rounds,
+            transfer_bytes_total=r.transfer_bytes_total,
+            transfer_bytes_per_round=r.transfer_bytes_per_round,
+            reduce_sweeps=r.reduce_sweeps,
+        ),
+    )
+
+
+def from_sequential(best, sol, stats, *, problem: str, wall_s: float) -> SolveResult:
+    """Wrap the sequential reference's ``(best, sol, SeqStats)`` triple."""
+    return SolveResult(
+        problem=problem,
+        backend="sequential",
+        best_size=best,
+        best_sol=sol,
+        found=sol is not None,
+        wall_s=wall_s,
+        rounds=stats.nodes,
+        nodes_expanded=stats.nodes,
+        tasks_transferred=0,
+        stats=SolveStats(
+            pruned=stats.pruned,
+            solutions=stats.solutions,
+            max_depth=stats.max_depth,
+        ),
+    )

@@ -1,0 +1,102 @@
+"""Builds the port's hand-written CUDA kernels and loads them with ``ctypes``.
+
+Each source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface.  Libraries go
+to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
+digest of their source and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Nothing is built at import time: the
+first CUDA launch (or ``build_all``) builds what is missing, with one
+``nvcc`` process per source, all started together.
+
+A failed build raises ``RuntimeError`` carrying nvcc's stderr; there is no
+fallback to the plain torch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent  # src/repro_torch/kernels
+BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
+
+# library name -> CUDA source
+SOURCES = {
+    "bitset_ops": _PKG / "bitset_ops" / "csrc" / "degrees.cu",
+}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / shared memory / spills into the build log
+)
+
+# name -> nvcc's output of the build that made the library in this process
+BUILD_LOG: dict[str, str] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError(
+            "cannot build the CUDA kernels: no CUDA toolkit found "
+            "(set CUDA_HOME or put nvcc on PATH)"
+        )
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, concurrently.
+
+    Returns ``BUILD_LOG`` (nvcc's output per library built here).  Raises
+    ``RuntimeError`` with nvcc's stderr if any build fails, after every
+    started process has exited.
+    """
+    running = {}
+    for name in names if names is not None else SOURCES:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        running[name] = (proc, tmp, out)
+    failures = []
+    for name, (proc, tmp, out) in running.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(
+                f"nvcc failed for {name} (exit {proc.returncode}):\n{stderr}"
+            )
+            continue
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+        BUILD_LOG[name] = stdout + stderr
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return BUILD_LOG
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib

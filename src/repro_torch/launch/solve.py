@@ -1,0 +1,143 @@
+"""Solver driver of the port: one instance, spmd or sequential, one config.
+
+The solo part of ``repro/launch/solve.py``: the same graph flags, the same
+config flags (a ``--config`` JSON is read by both packages alike) and the
+same ``[solve] best=... rounds=...`` line.  It runs on the card unless
+``--device cpu`` asks for the CPU.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.solve --graph gnp --n 600 \\
+      --p 0.00668 --workers 128 --max-rounds 64
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 --workers 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from repro_torch.graphs.generators import erdos_renyi, p_hat_like, parse_dimacs
+
+
+def build_graph(args):
+    if args.graph == "gnp":
+        return erdos_renyi(args.n, args.p if args.p else 4.0 / (args.n - 1), args.seed)
+    if args.graph == "phat":
+        return p_hat_like(args.n, args.density, args.seed)
+    if args.graph == "dimacs":
+        with open(args.file) as f:
+            return parse_dimacs(f.read())
+    raise ValueError(args.graph)
+
+
+# CLI flag dest -> SolveConfig field.  These flags default to SUPPRESS so
+# only EXPLICIT flags override a --config file (load -> override -> dump).
+CONFIG_FLAGS = {
+    "workers": "num_workers",
+    "codec": "codec",
+    "policy": "policy",
+    "steps_per_round": "steps_per_round",
+    "lanes": "lanes",
+    "transfer": "transfer_impl",
+    "explore": "explore_impl",
+    "donate_k": "donate_k",
+    "chunk_rounds": "chunk_rounds",
+    "mode": "mode",
+    "k": "k",
+    "capacity": "capacity",
+    "max_rounds": "max_rounds",
+}
+
+
+def effective_config(args):
+    """--config base (or defaults), overridden by explicit CLI flags."""
+    from repro_torch.api import SolveConfig
+
+    base = SolveConfig.load(args.config) if args.config else SolveConfig()
+    provided = {
+        CONFIG_FLAGS[dest]: value
+        for dest, value in vars(args).items()
+        if dest in CONFIG_FLAGS
+    }
+    return base.replace(**provided) if provided else base
+
+
+def main(argv=None):
+    S = argparse.SUPPRESS
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--graph", default="gnp", choices=["gnp", "phat", "dimacs"])
+    ap.add_argument("--n", type=int, default=60)
+    ap.add_argument("--p", type=float, default=0.0)
+    ap.add_argument("--density", type=float, default=0.4)
+    ap.add_argument("--file", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default="spmd",
+                    help="backend: spmd, sequential (seq)")
+    ap.add_argument("--problem", default="vertex_cover")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; there is no silent "
+                         "fallback to the CPU)")
+    ap.add_argument("--config", default=None,
+                    help="JSON SolveConfig to start from; explicit CLI "
+                         "flags override it")
+    ap.add_argument("--dump-config", default=None, metavar="PATH",
+                    help="write the EFFECTIVE config as JSON ('-' prints) "
+                         "and still run the solve")
+    # -- SolveConfig knobs (SUPPRESS default = "not explicitly provided") ----
+    ap.add_argument("--workers", type=int, default=S)
+    ap.add_argument("--codec", default=S)
+    ap.add_argument("--policy", default=S, choices=["priority", "random"])
+    ap.add_argument("--steps-per-round", type=int, default=S)
+    ap.add_argument("--lanes", type=int, default=S)
+    ap.add_argument("--transfer", default=S, choices=["sparse", "gather"])
+    ap.add_argument("--explore", default=S, choices=["fused", "reference"])
+    ap.add_argument("--donate-k", type=int, default=S)
+    ap.add_argument("--chunk-rounds", type=int, default=S)
+    ap.add_argument("--mode", default=S, choices=["bnb", "fpt"])
+    ap.add_argument("--k", type=int, default=S)
+    ap.add_argument("--capacity", type=int, default=S)
+    ap.add_argument("--max-rounds", type=int, default=S,
+                    help="superstep budget (checked per chunk): a bounded "
+                         "anytime solve")
+    args = ap.parse_args(argv)
+
+    from repro_torch.api import SolverSession, get_backend
+    from repro_torch.problems.registry import get_problem
+
+    try:
+        cfg = effective_config(args)
+        spec = get_problem(args.problem)
+        backend = get_backend(args.engine)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
+
+    if args.dump_config:
+        if args.dump_config == "-":
+            sys.stdout.write(cfg.to_json())
+        else:
+            cfg.save(args.dump_config)
+            print(f"[solve] effective config -> {args.dump_config}")
+
+    session = SolverSession(
+        problem=spec, backend=backend, config=cfg, device=args.device
+    )
+    g = build_graph(args)
+    print(f"[solve] graph n={g.n} m={g.num_edges} engine={backend.name} "
+          f"problem={spec.name}")
+    r = session.solve(g)
+    line = (f"[solve] best={r.best_size} rounds={r.rounds} "
+            f"nodes={r.nodes_expanded} transfers={r.tasks_transferred} "
+            f"wall={r.wall_s:.2f}s")
+    s = r.stats
+    if backend.name == "spmd":
+        line += (f" overflow={s.overflow} "
+                 f"control_B/round={s.control_bytes_per_round} "
+                 f"transfer_B/round={s.transfer_bytes_per_round:.1f} "
+                 f"(total {s.transfer_bytes_total}B over "
+                 f"{s.transfer_rounds} transfer rounds, "
+                 f"{cfg.transfer_impl})")
+    print(line)
+
+
+if __name__ == "__main__":
+    main()
