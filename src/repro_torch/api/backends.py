@@ -1,11 +1,13 @@
-"""The port's backends: the spmd solve plane and the sequential reference.
+"""The port's backends: the spmd solve planes and the sequential reference.
 
-The port of ``repro/api/backends.py``'s solo ``solve_spmd`` and its
-``Backend`` registry.  The spmd driver is the JAX package's loop: startup
-scatter, then chunks of up to ``chunk_rounds`` supersteps until quiescence
-(or the FPT bound) or ``max_rounds``, then one host fetch.
+The port of ``repro/api/backends.py``'s ``solve_spmd``, ``solve_many_spmd``
+and its ``Backend`` registry.  The spmd drivers are the JAX package's loops:
+startup scatter, then chunks of up to ``chunk_rounds`` supersteps until
+quiescence (or the FPT bound) or ``max_rounds``, then one host fetch; the
+batched driver adds bucketing by W, pow2 compaction and eager per-lane
+result extraction.  Both take their plane from a :class:`PlaneCache`.
 
-Features of the JAX driver that the port does not carry yet are refused
+Features of the JAX drivers that the port does not carry yet are refused
 with ``NotImplementedError`` naming their ROADMAP item; none is silently
 ignored.
 """
@@ -14,11 +16,27 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
+import torch
+
+from repro_torch.api.cache import PlaneCache
 from repro_torch.api.config import SolveConfig
-from repro_torch.api.result import SolveResult, from_engine_result, from_sequential
+from repro_torch.api.result import (
+    BatchSolveResult,
+    LaneStats,
+    SolveResult,
+    from_engine_result,
+    from_sequential,
+)
 from repro_torch.core import engine as _engine
 from repro_torch.core.encoding import make_codec
-from repro_torch.core.superstep import build_plane_fn, state_to
+from repro_torch.core.superstep import (
+    LaneState,
+    map_state,
+    slice_lanes,
+    state_to,
+    step_lanes,
+)
 from repro_torch.graphs.bitgraph import n_words
 from repro_torch.problems import base as problems_base
 from repro_torch.problems.base import WorkCounters
@@ -40,10 +58,21 @@ def _refuse(what: str) -> None:
     )
 
 
+def _refuse_unported(cfg: SolveConfig, injector) -> None:
+    for name in ("checkpoint_dir", "resume_from"):
+        if getattr(cfg, name) is not None:
+            _refuse(name)
+    if cfg.frontier_spill:
+        _refuse("frontier_spill")
+    if injector is not None:
+        _refuse("injector")
+
+
 def solve_spmd(
     spec,
     g,
     cfg: SolveConfig,
+    cache: PlaneCache,
     *,
     device,
     initial_state=None,
@@ -56,61 +85,45 @@ def solve_spmd(
     ``initial_state`` (a :class:`~repro_torch.core.superstep.WorkerState`,
     e.g. from ``worker_state_from_flat``) starts the loop from that state
     instead of the startup scatter, with ``rounds`` counted from 0."""
-    for name in ("checkpoint_dir", "resume_from"):
-        if getattr(cfg, name) is not None:
-            _refuse(name)
-    for name in ("frontier_spill", "use_mesh"):
-        if getattr(cfg, name):
-            _refuse(name)
+    _refuse_unported(cfg, injector)
+    if cfg.use_mesh:
+        _refuse("use_mesh")
     if mesh is not None:
         _refuse("mesh")
-    if injector is not None:
-        _refuse("injector")
 
     k = cfg.solo_k()
     W = n_words(g.n)
-    cap = cfg.capacity or (4 * g.n + 8 * cfg.lanes)
     initial_best = problems_base.initial_bound(spec, g, cfg.mode, k)
     pad = make_codec(cfg.codec, g.n, problem=spec).pad_words
     counters = WorkCounters()
     use_fpt = cfg.mode == "fpt"
-    plane = build_plane_fn(
-        spec,
-        steps_per_round=cfg.steps_per_round,
-        lanes=cfg.lanes,
-        policy_priority=cfg.policy_priority,
-        transfer_pad_words=pad,
-        packed_status=cfg.packed_status,
-        skip_empty_transfer=cfg.skip_empty_transfer,
-        transfer_impl=cfg.transfer_impl,
-        donate_k=cfg.donate_k,
-        explore_impl=cfg.explore_impl,
-        chunk_rounds=cfg.chunk_rounds,
-        use_fpt=use_fpt,
-        counters=counters,
-    )
     fpt_bound = int(spec.fpt_target(k)) if use_fpt else None
 
     data = problems_base.make_data(spec, g, device)
     if initial_state is None:
+        cap = cfg.capacity or (4 * g.n + 8 * cfg.lanes)
         state = _engine.make_instance_state(
             spec, g, cfg.num_workers, cap, W, initial_best, device
         )
     else:
         state = state_to(initial_state, device)
+        cap = int(state.frontier.masks.shape[-2])
+    plane = cache.solo_plane(spec, cfg, pad, use_fpt)
+    cache.note("solo", spec, cfg, pad, use_fpt, (g.n, W, cap, cfg.num_workers))
 
     t0 = time.perf_counter()
     rounds = 0
     while rounds < cfg.max_rounds:
-        state, done, ran, _ = plane(data, state, fpt_bound)
+        state, done, ran, _ = plane(data, state, fpt_bound, counters)
         rounds += ran
         if done:
             break
-    host = _engine._fetch_state(state)
+    host = _engine._fetch_batch_state(map_state(lambda x: x[None], state))
     wall = time.perf_counter() - t0
 
     r = _engine._extract_result(
         host,
+        0,
         spec,
         g,
         rounds,
@@ -124,28 +137,204 @@ def solve_spmd(
     return r
 
 
+def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
+                    device, injector=None):
+    """B instances on one batched plane per W bucket; returns an
+    :class:`~repro_torch.core.engine.BatchResult`.
+
+    The JAX driver's bucketing, padding and compaction: buckets are sorted
+    by (W, n), each pads to its max n (exact n under the basic codec, whose
+    payload is n·W words), and its frontier capacity is ``4·n_max +
+    8·lanes``.  When at most ``compact_threshold`` of a bucket's lanes are
+    live, finished lanes' results are extracted and the lanes are resliced
+    down to the next power of two (finished lanes fill up to it), and the
+    same plane function keeps running.  Results come back in the caller's
+    order; each instance's ``wall_s`` is its bucket's wall over the bucket
+    size.  ``k`` may be one int or one per instance (fpt)."""
+    _refuse_unported(cfg, injector)
+    if cfg.use_mesh:
+        raise ValueError(
+            "solve_many has no mesh path yet (vmap virtual workers only); "
+            "use solve() per instance or a config with use_mesh=False"
+        )
+    graphs = list(graphs)
+    B = len(graphs)
+    use_fpt = cfg.mode == "fpt"
+    if use_fpt:
+        ks = list(cfg.k) if isinstance(cfg.k, tuple) else [cfg.k] * B
+        if len(ks) != B or any(kk is None for kk in ks):
+            raise ValueError("fpt mode needs one k (or one per instance)")
+    else:
+        ks = [None] * B
+    results: dict = {}
+    bucket_record = []
+    compactions = 0
+    wall_total = 0.0
+    lane_stats = {"chunk_calls": 0, "lane_chunks": 0, "live_lane_chunks": 0}
+    counters = WorkCounters()
+
+    def extract(host, lane, oi, rounds_i):
+        return _engine._extract_result(
+            host, lane, spec, graphs[oi], rounds_i, 0.0,
+            mode=cfg.mode, k=ks[oi], num_workers=cfg.num_workers,
+            packed_status=cfg.packed_status,
+        )
+
+    def collect(lanes, which):
+        host = _engine._fetch_batch_state(lanes.worker)
+        rounds_h = lanes.rounds.cpu().numpy()
+        for lane in which:
+            oi = int(lanes.tag[lane])
+            if oi not in results:
+                results[oi] = extract(host, lane, oi, int(rounds_h[lane]))
+
+    buckets = _engine._bucket_instances(graphs, by_n=(cfg.codec == "basic"))
+    for (W, _), idxs in sorted(buckets.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+        bucket_graphs = [graphs[i] for i in idxs]
+        n_max = max(g.n for g in bucket_graphs)
+        bucket_record.append((W, n_max, list(idxs)))
+        t0 = time.perf_counter()
+        cap = cfg.capacity or (4 * n_max + 8 * cfg.lanes)
+        pad = make_codec(cfg.codec, n_max, problem=spec).pad_words
+        initial_bests = [
+            problems_base.initial_bound(spec, graphs[i], cfg.mode, ks[i])
+            for i in idxs
+        ]
+        datas = problems_base.make_batch_data(spec, bucket_graphs, n_max, W, device)
+        lanes = LaneState(
+            worker=_engine._make_batch_state(
+                spec, bucket_graphs, cfg.num_workers, cap, W, initial_bests, device
+            ),
+            done=torch.zeros((len(idxs),), dtype=torch.bool, device=device),
+            tag=np.asarray(idxs, np.int32),
+            rounds=torch.zeros((len(idxs),), dtype=torch.int32, device=device),
+        )
+        fpt_bounds = None
+        if use_fpt:
+            fpt_bounds = torch.tensor(
+                [spec.fpt_target(ks[i]) for i in idxs], dtype=torch.int32,
+                device=device,
+            )
+        plane = cache.batch_plane(spec, cfg, pad, use_fpt)
+
+        def note(n_lanes):
+            cache.note("batch", spec, cfg, pad, use_fpt,
+                       (n_max, W, cap, cfg.num_workers, n_lanes))
+
+        note(lanes.num_lanes)
+        total_ran = 0
+        live_h = np.ones(len(idxs), bool)  # live entering the next chunk
+        while total_ran < cfg.max_rounds:
+            lane_stats["chunk_calls"] += 1
+            lane_stats["lane_chunks"] += lanes.num_lanes
+            lane_stats["live_lane_chunks"] += int(live_h.sum())
+            lanes, ran, _ = step_lanes(plane, datas, lanes, fpt_bounds, counters)
+            total_ran += ran
+            done_h = lanes.done.cpu().numpy()
+            live_h = ~done_h
+            if done_h.all():
+                break
+            n_live = int(live_h.sum())
+            target = _engine._pow2_at_least(n_live)
+            if (
+                cfg.compact_threshold > 0
+                and n_live <= cfg.compact_threshold * lanes.num_lanes
+                and target < lanes.num_lanes
+            ):
+                # collect finished lanes now, keep the live ones plus
+                # finished fillers up to the pow2 target, and reslice
+                fillers = np.flatnonzero(done_h)[: target - n_live]
+                collect(lanes, [i for i in np.flatnonzero(done_h) if i not in fillers])
+                sel = np.concatenate([np.flatnonzero(live_h), fillers])
+                lanes = slice_lanes(lanes, sel)
+                datas = problems_base.slice_instances(datas, sel)
+                if fpt_bounds is not None:
+                    fpt_bounds = fpt_bounds[torch.from_numpy(sel).to(device)]
+                live_h = live_h[sel]
+                compactions += 1
+                note(lanes.num_lanes)
+
+        collect(lanes, range(lanes.num_lanes))
+        bucket_wall = time.perf_counter() - t0
+        wall_total += bucket_wall
+        for oi in idxs:
+            results[oi].wall_s = bucket_wall / len(idxs)
+
+    lane_stats["occupancy"] = (
+        lane_stats["live_lane_chunks"] / lane_stats["lane_chunks"]
+        if lane_stats["lane_chunks"]
+        else 0.0
+    )
+    lane_stats["reduce_sweeps"] = counters.reduce_sweeps
+    return _engine.BatchResult(
+        results=[results[i] for i in range(B)],
+        wall_s=wall_total,
+        buckets=bucket_record,
+        compactions=compactions,
+        lane_stats=lane_stats,
+    )
+
+
 # -- the Backend protocol ------------------------------------------------------
 
 
 class Backend:
-    """One engine behind the session façade: ``solve`` takes the resolved
-    problem spec, the validated config and the device, and returns a
-    :class:`SolveResult`."""
+    """One engine behind the session façade.
+
+    ``solve``/``solve_many`` take the resolved problem spec, the validated
+    config, the session's plane cache and the device, and return the
+    unified schema.  The default ``solve_many`` loops ``solve`` per
+    instance (honouring per-instance ``k`` tuples); backends with a real
+    batch plane override it."""
 
     name: str = "?"
 
-    def solve(self, spec, g, cfg: SolveConfig, *, device) -> SolveResult:
+    def solve(self, spec, g, cfg: SolveConfig, cache: PlaneCache, *,
+              device) -> SolveResult:
         raise NotImplementedError
+
+    def solve_many(self, spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
+                   device) -> BatchSolveResult:
+        graphs = list(graphs)
+        ks = list(cfg.k) if isinstance(cfg.k, tuple) else [cfg.k] * len(graphs)
+        if len(ks) != len(graphs):
+            raise ValueError("per-instance k needs one entry per graph")
+        out = [
+            self.solve(spec, g, cfg.replace(k=kk), cache, device=device)
+            for g, kk in zip(graphs, ks)
+        ]
+        return BatchSolveResult(
+            problem=spec.name,
+            backend=self.name,
+            results=out,
+            wall_s=sum(r.wall_s for r in out),
+        )
 
 
 class SpmdBackend(Backend):
     name = "spmd"
 
-    def solve(self, spec, g, cfg, *, device, initial_state=None, mesh=None,
-              injector=None):
-        r = solve_spmd(spec, g, cfg, device=device, initial_state=initial_state,
-                       mesh=mesh, injector=injector)
+    def solve(self, spec, g, cfg, cache, *, device, initial_state=None,
+              mesh=None, injector=None):
+        r = solve_spmd(spec, g, cfg, cache, device=device,
+                       initial_state=initial_state, mesh=mesh, injector=injector)
         return from_engine_result(r, problem=spec.name, backend=self.name)
+
+    def solve_many(self, spec, graphs, cfg, cache, *, device, injector=None):
+        br = solve_many_spmd(spec, graphs, cfg, cache, device=device,
+                             injector=injector)
+        return BatchSolveResult(
+            problem=spec.name,
+            backend=self.name,
+            results=[
+                from_engine_result(r, problem=spec.name, backend=self.name)
+                for r in br.results
+            ],
+            wall_s=br.wall_s,
+            buckets=br.buckets,
+            compactions=br.compactions,
+            lane_stats=LaneStats(**br.lane_stats),
+        )
 
 
 class SequentialBackend(Backend):
@@ -153,7 +342,7 @@ class SequentialBackend(Backend):
 
     name = "sequential"
 
-    def solve(self, spec, g, cfg, *, device):
+    def solve(self, spec, g, cfg, cache, *, device):
         if spec.sequential is None:
             raise ValueError(f"problem {spec.name!r} has no sequential reference")
         t0 = time.perf_counter()

@@ -1,9 +1,10 @@
 """The result schema of the port's backends.
 
-The port of ``repro/api/result.py``'s ``SolveStats``/``SolveResult`` and
-their converters, holding the counters the ported backends write.  The JAX
-package's deprecated dict-style access to ``stats`` is not carried over:
-read attributes (``r.stats.overflow_count``).
+The port of ``repro/api/result.py``'s ``SolveStats``/``SolveResult``,
+``LaneStats``/``BatchSolveResult`` and their converters, holding the
+counters the ported backends write.  The JAX package's deprecated dict-style
+access to ``stats`` is not carried over: read attributes
+(``r.stats.overflow_count``).
 """
 
 from __future__ import annotations
@@ -26,12 +27,29 @@ class SolveStats:
     transfer_bytes_total: int = 0
     transfer_bytes_per_round: float = 0.0
     # reduction sweeps run over whole P·lanes task batches; each launches
-    # one degree panel (the port batches the JAX package's per-lane loops)
+    # one degree panel (the port batches the JAX package's per-lane loops).
+    # Solo solves only: a batch's sweeps serve all its instances and are
+    # counted in LaneStats.reduce_sweeps
     reduce_sweeps: int = 0
     # -- sequential reference -------------------------------------------------
     pruned: int = 0
     solutions: int = 0
     max_depth: int = 0
+
+
+@dataclasses.dataclass
+class LaneStats:
+    """Batched-plane occupancy: ``chunk_calls`` (chunk dispatches),
+    ``lane_chunks`` (chunk_calls × plane width — paid lane slots),
+    ``live_lane_chunks`` (slots that held an unfinished instance) and their
+    ratio ``occupancy``.  ``reduce_sweeps`` (the port's own) counts the
+    reduction sweeps run over whole batches, one degree panel each."""
+
+    chunk_calls: int = 0
+    lane_chunks: int = 0
+    live_lane_chunks: int = 0
+    occupancy: float = 0.0
+    reduce_sweeps: int = 0
 
 
 @dataclasses.dataclass
@@ -59,6 +77,31 @@ class SolveResult:
         if self.best_sol is not None:
             d["best_sol"] = [int(w) for w in np.asarray(self.best_sol, np.uint32)]
         return d
+
+
+@dataclasses.dataclass
+class BatchSolveResult:
+    """Per-instance results of one batched solve; ``results[i]`` corresponds
+    to ``graphs[i]`` (submission order survives bucketing and compaction).
+
+    ``buckets`` is the packing record — one ``(W, n_max, [indices])`` triple
+    per bucket (empty for backends that solve instance by instance);
+    ``compactions`` counts host-side batch compactions; ``lane_stats`` is
+    the :class:`LaneStats` occupancy record."""
+
+    problem: str
+    backend: str
+    results: list
+    wall_s: float
+    buckets: list = dataclasses.field(default_factory=list)
+    compactions: int = 0
+    lane_stats: LaneStats = dataclasses.field(default_factory=LaneStats)
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __iter__(self):
+        return iter(self.results)
 
 
 def from_engine_result(r, *, problem: str, backend: str = "spmd") -> SolveResult:

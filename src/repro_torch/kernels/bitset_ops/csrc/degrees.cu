@@ -2,11 +2,13 @@
 // src/repro/kernels/bitset_ops/kernel.py:180 `batched_degrees` (body
 // `_degrees_kernel`, kernel.py:72).
 //
-//   deg[t, v] = popcount(adj[v] & masks[t])   if bit v of masks[t] is set
-//             = -1                            otherwise
+//   deg[t, v] = popcount(adj[i(t)][v] & masks[t])   if bit v of masks[t] is set
+//             = -1                                  otherwise
 //
-// adj (n, W) and masks (T, W) hold packed 32-bit words (int32 tensors in the
-// port, the same bits as the reference's uint32); out (T, n) int32.
+// adj (B, n, W) and masks (T, W) hold packed 32-bit words (int32 tensors in
+// the port, the same bits as the reference's uint32); inst (T,) int32 names
+// each task's instance i(t), and a null inst means instance 0 for every
+// task (the solo plane).  Out (T, n) int32.
 //
 // Design.  The TPU kernel keeps the whole adjacency in VMEM and walks a grid
 // of 8-task blocks.  227 KB of shared memory per block does not hold adj at
@@ -34,15 +36,19 @@ constexpr int kMaxGridY = 65535;
 
 __global__ void __launch_bounds__(kThreads) batched_degrees_kernel(
     const uint32_t* __restrict__ adj, const uint32_t* __restrict__ masks,
-    int32_t* __restrict__ out, int n, int W, int T) {
+    const int32_t* __restrict__ inst, int32_t* __restrict__ out, int n, int W,
+    int T, int B) {
   extern __shared__ uint32_t mask_row[];
   const int v = blockIdx.x * kThreads + threadIdx.x;
   for (int t = blockIdx.y; t < T; t += gridDim.y) {
+    const int i = inst == nullptr ? 0 : inst[t];
+    if (i < 0 || i >= B) __trap();  // a task of no instance: a caller's bug
     const uint32_t* m = masks + static_cast<size_t>(t) * W;
     for (int w = threadIdx.x; w < W; w += kThreads) mask_row[w] = m[w];
     __syncthreads();
     if (v < n) {
-      const uint32_t* row = adj + static_cast<size_t>(v) * W;
+      const uint32_t* row =
+          adj + (static_cast<size_t>(i) * n + static_cast<size_t>(v)) * W;
       int deg = 0;
       for (int w = 0; w < W; ++w) deg += __popc(__ldg(row + w) & mask_row[w]);
       const bool inside = (mask_row[v >> 5] >> (v & 31)) & 1u;
@@ -57,9 +63,9 @@ __global__ void __launch_bounds__(kThreads) batched_degrees_kernel(
 // Launches on `stream` without synchronising.  Returns cudaGetLastError()
 // after the launch (0 on success); the caller raises on anything else.
 extern "C" int batched_degrees_launch(const void* adj, const void* masks,
-                                      void* out, int n, int W, int T,
-                                      void* stream) {
-  if (n <= 0 || W <= 0 || T <= 0 || n > 32 * W) {
+                                      const void* inst, void* out, int n,
+                                      int W, int T, int B, void* stream) {
+  if (n <= 0 || W <= 0 || T <= 0 || B <= 0 || n > 32 * W) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = static_cast<size_t>(W) * sizeof(uint32_t);
@@ -73,7 +79,8 @@ extern "C" int batched_degrees_launch(const void* adj, const void* masks,
   batched_degrees_kernel<<<grid, kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(adj), static_cast<const uint32_t*>(masks),
-      static_cast<int32_t*>(out), n, W, T);
+      static_cast<const int32_t*>(inst), static_cast<int32_t*>(out), n, W, T,
+      B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,13 @@
-"""Plain PyTorch version of the batched bitset-degree kernel.
+"""Plain PyTorch versions of the batched bitset kernels.
 
-The port's twin of ``repro/kernels/bitset_ops/ref.py:16``.  Packed words are
-int32 tensors holding the reference's uint32 bits.  It runs on any device:
-the CPU tests use it as the path's degree panel, and ``chip_smoke.py`` holds
-the CUDA kernel against it on the card.
+The port's twins of ``repro/kernels/bitset_ops/ref.py``.  Packed words are
+int32 tensors holding the reference's uint32 bits.  They run on any device:
+the CPU tests use them as the path's panels, and ``chip_smoke.py`` holds the
+CUDA kernels against them on the card.
+
+Both take an instance axis the JAX package gets from ``vmap``: ``adj`` is
+``(n, W)`` for one instance or ``(B, n, W)`` for B, and ``inst`` ((T,)
+int32, or None for instance 0) names the instance of each task row.
 """
 
 from __future__ import annotations
@@ -25,16 +29,40 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return (((x * 0x01010101) >> 24) & 0xFF).to(torch.int32)
 
 
-def batched_degrees_ref(adj: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """adj (n, W) int32, masks (T, W) int32 -> degrees (T, n) int32.
+def task_adjacency(adj: torch.Tensor, inst) -> torch.Tensor:
+    """The adjacency each task row reads: ``(1, n, W)`` when every row is
+    instance 0 (broadcasts over the rows), else ``adj[inst]`` (T, n, W)."""
+    if adj.dim() == 2:
+        adj = adj[None]
+    if inst is None:
+        return adj[:1]
+    return adj[inst]
 
-    deg[t, v] = popcount(adj[v] & masks[t]) if v in masks[t] else -1.
+
+def batched_degrees_ref(
+    adj: torch.Tensor, masks: torch.Tensor, inst=None
+) -> torch.Tensor:
+    """adj (n, W) or (B, n, W), masks (T, W) int32 -> degrees (T, n) int32.
+
+    deg[t, v] = popcount(adj[inst[t], v] & masks[t]) if v in masks[t] else -1.
     """
-    n = adj.shape[0]
-    inter = adj[None, :, :] & masks[:, None, :]  # (T, n, W)
+    n = adj.shape[-2]
+    inter = task_adjacency(adj, inst) & masks[:, None, :]  # (T, n, W)
     deg = popcount32(inter).sum(dim=-1, dtype=torch.int32)
     v = torch.arange(n, device=adj.device)
     word_idx = v // WORD_BITS
     bit_idx = (v % WORD_BITS).to(torch.int32)
     inside = ((masks[:, word_idx] >> bit_idx[None, :]) & 1).bool()  # (T, n)
     return torch.where(inside, deg, -1)
+
+
+def expand_stats_ref(
+    adj: torch.Tensor, masks: torch.Tensor, sols: torch.Tensor, inst=None
+):
+    """The fused expand panel: -> (deg (T, n) int32, pc_mask (T,) int32,
+    pc_sol (T,) int32), the degrees of :func:`batched_degrees_ref` plus the
+    popcounts of each task's mask and partial solution."""
+    deg = batched_degrees_ref(adj, masks, inst)
+    pc_mask = popcount32(masks).sum(dim=-1, dtype=torch.int32)
+    pc_sol = popcount32(sols).sum(dim=-1, dtype=torch.int32)
+    return deg, pc_mask, pc_sol

@@ -26,6 +26,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 # library name -> CUDA source
 SOURCES = {
     "bitset_ops": _PKG / "bitset_ops" / "csrc" / "degrees.cu",
+    "expand_stats": _PKG / "bitset_ops" / "csrc" / "expand_stats.cu",
 }
 
 NVCC_FLAGS = (

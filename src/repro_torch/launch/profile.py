@@ -1,16 +1,19 @@
-"""Where the solve plane's time goes on the card, at the smoke's paper size.
+"""Where the solve plane's time goes on the card, at the smoke's sizes.
 
   PYTHONPATH=src python -m repro_torch.launch.profile [--supersteps 1]
+  PYTHONPATH=src python -m repro_torch.launch.profile --problem max_clique --supersteps 8
 
-Solves G(600, 4/599, seed 0) with 128 workers (the paper's random family,
-as ``chip_smoke.py`` runs it) for a bounded number of supersteps, after one
-warm-up superstep, under ``torch.profiler``.  Prints:
+Solves, with 128 workers, for a bounded number of supersteps after one
+warm-up superstep, under ``torch.profiler``, the graph ``chip_smoke.py``
+runs for the problem: G(600, 4/599, seed 0) (the paper's random family) for
+vertex cover and MIS, ``p_hat_like(300, 0.325, seed 0)`` for max clique.
+Prints:
 
 * wall time, device busy time (the union of kernel, copy and memset
   intervals in the trace) and the device's idle share;
 * device time and launch count by kernel name, largest first;
-* the median device time of one reduction sweep and of one degree panel at
-  the plane's batch shape, from CUDA events;
+* the median device time of one panel at the plane's batch shape, from CUDA
+  events (vertex cover: also one reduction sweep);
 * the solve's reduction sweeps and kernel launches.
 
 The trace itself goes to ``--trace`` (default
@@ -30,10 +33,10 @@ import torch
 
 from repro_torch.api import SolveConfig, SolverSession
 from repro_torch.core import engine
-from repro_torch.graphs.generators import erdos_renyi
+from repro_torch.graphs.generators import erdos_renyi, p_hat_like
 from repro_torch.kernels import counts
 from repro_torch.problems import vertex_cover
-from repro_torch.problems.base import degrees_batch, make_data
+from repro_torch.problems.base import degrees_batch, expand_stats_batch, make_data
 from repro_torch.problems.registry import get_problem
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -77,7 +80,10 @@ def _union_us(intervals) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=600)
+    ap.add_argument("--problem", default="vertex_cover",
+                    choices=["vertex_cover", "max_clique", "mis"])
+    ap.add_argument("--n", type=int, default=None,
+                    help="vertices (default: 300 for max_clique, else 600)")
     ap.add_argument("--workers", type=int, default=128)
     ap.add_argument("--supersteps", type=int, default=1)
     ap.add_argument("--top", type=int, default=15)
@@ -87,15 +93,19 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     dev = torch.device("cuda")
-    g = erdos_renyi(args.n, 4.0 / (args.n - 1), 0)
-    spec = get_problem("vertex_cover")
+    if args.problem == "max_clique":
+        g = p_hat_like(args.n or 300, 0.325, 0)
+    else:
+        n = args.n or 600
+        g = erdos_renyi(n, 4.0 / (n - 1), 0)
+    spec = get_problem(args.problem)
     cfg = SolveConfig(
         num_workers=args.workers, max_rounds=args.supersteps,
         chunk_rounds=args.supersteps,
     )
 
     # warm-up: kernel build, allocator, one superstep
-    SolverSession(config=cfg.replace(max_rounds=1, chunk_rounds=1), device=dev).solve(g)
+    SolverSession(spec, config=cfg.replace(max_rounds=1, chunk_rounds=1), device=dev).solve(g)
 
     trace = Path(args.trace)
     trace.parent.mkdir(parents=True, exist_ok=True)
@@ -103,7 +113,7 @@ def main(argv=None) -> None:
     counts.reset()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        r = SolverSession(config=cfg, device=dev).solve(g)
+        r = SolverSession(spec, config=cfg, device=dev).solve(g)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     launches = counts.snapshot()
@@ -130,13 +140,20 @@ def main(argv=None) -> None:
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"[profile]   {ms:10.3f}  {ms / total_ms:6.3f}  {cnt:8d}  {name[:110]}")
 
-    # one reduction sweep and one degree panel at the plane's batch shape
+    # one panel (and for vertex cover one reduction sweep) at the plane's
+    # batch shape
     data = make_data(spec, g, dev)
     state = engine.make_instance_state(
-        spec, g, args.workers, 4 * g.n + 8, g.W, g.n + 1, dev
+        spec, g, args.workers, 4 * g.n + 8, g.W, spec.bnb_bound(g), dev
     )
     masks = state.frontier.masks[:, 0].contiguous()
     sols = state.frontier.sols[:, 0].contiguous()
+    if args.problem != "vertex_cover":
+        panel_ms = _median_ms(lambda: expand_stats_batch(data, masks, sols))
+        print(f"[profile] one expand-stats panel at T={masks.shape[0]}: "
+              f"{panel_ms:.4f} ms device; {1e3 * wall_s / explore_rounds:.4f} ms "
+              f"of wall per explore round")
+        return
     sweep_ms = _median_ms(lambda: vertex_cover._reduce_step(data, masks, sols))
     panel_ms = _median_ms(lambda: degrees_batch(data, masks))
     print(f"[profile] one reduction sweep at T={masks.shape[0]}: {sweep_ms:.4f} ms "

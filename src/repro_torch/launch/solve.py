@@ -1,14 +1,18 @@
-"""Solver driver of the port: one instance, spmd or sequential, one config.
+"""Solver driver of the port: spmd or sequential, one config.
 
-The solo part of ``repro/launch/solve.py``: the same graph flags, the same
-config flags (a ``--config`` JSON is read by both packages alike) and the
-same ``[solve] best=... rounds=...`` line.  It runs on the card unless
-``--device cpu`` asks for the CPU.
+The port of ``repro/launch/solve.py`` without its checkpoint and chaos
+flags: the same graph flags, the same config flags (a ``--config`` JSON is
+read by both packages alike) and the same ``[solve] best=... rounds=...``
+lines.  Several DIMACS files (``--files``) and/or ``--batch B`` generated
+instances (consecutive seeds) go to ``solve_many``, one batched plane per
+W bucket.  It runs on the card unless ``--device cpu`` asks for the CPU.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --graph gnp --n 600 \\
       --p 0.00668 --workers 128 --max-rounds 64
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 --workers 4
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu \\
+      --problem max_clique --n 20 --p 0.4 --workers 4 --batch 4
 """
 
 from __future__ import annotations
@@ -19,15 +23,36 @@ import sys
 from repro_torch.graphs.generators import erdos_renyi, p_hat_like, parse_dimacs
 
 
-def build_graph(args):
+def build_graph(args, seed=None):
+    seed = args.seed if seed is None else seed
     if args.graph == "gnp":
-        return erdos_renyi(args.n, args.p if args.p else 4.0 / (args.n - 1), args.seed)
+        return erdos_renyi(args.n, args.p if args.p else 4.0 / (args.n - 1), seed)
     if args.graph == "phat":
-        return p_hat_like(args.n, args.density, args.seed)
+        return p_hat_like(args.n, args.density, seed)
     if args.graph == "dimacs":
         with open(args.file) as f:
             return parse_dimacs(f.read())
     raise ValueError(args.graph)
+
+
+def build_graphs(args):
+    """The multi-instance work list: every --files entry, plus --batch
+    generated instances (consecutive seeds).  Empty unless one of those
+    multi-instance flags was used."""
+    graphs, labels = [], []
+    for path in args.files or []:
+        with open(path) as f:
+            graphs.append(parse_dimacs(f.read()))
+        labels.append(path)
+    if args.batch is not None:
+        if args.batch < 1:
+            raise SystemExit("--batch must be >= 1")
+        if args.graph == "dimacs":
+            raise SystemExit("--batch needs a generated graph (gnp/phat)")
+        for b in range(args.batch):
+            graphs.append(build_graph(args, seed=args.seed + b))
+            labels.append(f"{args.graph}-n{args.n}-seed{args.seed + b}")
+    return graphs, labels
 
 
 # CLI flag dest -> SolveConfig field.  These flags default to SUPPRESS so
@@ -70,6 +95,12 @@ def main(argv=None):
     ap.add_argument("--p", type=float, default=0.0)
     ap.add_argument("--density", type=float, default=0.4)
     ap.add_argument("--file", default=None)
+    ap.add_argument("--files", nargs="+", default=None,
+                    help="several DIMACS files -> one solve_many batch")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="generate B instances (seeds seed..seed+B-1) and "
+                         "solve them on one batched plane (B=1 still uses "
+                         "the batched plane)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine", default="spmd",
                     help="backend: spmd, sequential (seq)")
@@ -121,6 +152,22 @@ def main(argv=None):
     session = SolverSession(
         problem=spec, backend=backend, config=cfg, device=args.device
     )
+    batch_graphs, batch_labels = build_graphs(args)
+    if batch_graphs:
+        print(f"[solve] batch of {len(batch_graphs)} instances "
+              f"[{spec.name}] on {backend.name}, "
+              f"workers/instance={cfg.num_workers}")
+        res = session.solve_many(batch_graphs)
+        for label, r in zip(batch_labels, res.results):
+            print(f"[solve]   {label}: best={r.best_size} rounds={r.rounds} "
+                  f"nodes={r.nodes_expanded} transfers={r.tasks_transferred}")
+        print(f"[solve] batch done: {len(batch_graphs)} instances in "
+              f"{res.wall_s:.2f}s "
+              f"({len(batch_graphs) / max(res.wall_s, 1e-9):.2f} inst/s), "
+              f"{len(res.buckets)} bucket(s), {res.compactions} "
+              f"compaction(s); cache: {session.cache_stats()}")
+        return
+
     g = build_graph(args)
     print(f"[solve] graph n={g.n} m={g.num_edges} engine={backend.name} "
           f"problem={spec.name}")

@@ -26,13 +26,21 @@ WORD_BITS = 32
 
 
 class ProblemData(NamedTuple):
-    """Static per-instance device tensors, shared by every worker.
+    """Static instance tensors, shared by every worker of an instance.
 
     ``adj`` is the BRANCHING graph's packed adjacency (the problem's
-    ``host_adj`` decides what that is)."""
+    ``host_adj`` decides what that is), with a leading instance axis: a solo
+    solve is the B = 1 case.  Instances of a batch pad to one ``n_max`` with
+    zero rows (isolated vertices never in a mask).
 
-    n: int  # number of vertices
-    adj: torch.Tensor  # (n, W) int32 packed adjacency
+    ``inst`` maps each row of the task batch being expanded to its
+    instance, so one panel serves every instance of a batch: the plane
+    sets it with :func:`for_task_rows`.  None means every row is instance
+    0, which only a one-instance ``adj`` allows."""
+
+    n: np.ndarray  # (B,) host int32 -- real (unpadded) vertices per instance
+    adj: torch.Tensor  # (B, n_max, W) int32 packed adjacency
+    inst: Optional[torch.Tensor] = None  # (T,) int32 -- each task row's instance
 
 
 class BranchStep(NamedTuple):
@@ -108,14 +116,76 @@ def single_bit(v: torch.Tensor, W: int) -> torch.Tensor:
     return torch.where(cols == word[..., None], value[..., None], 0).to(torch.int32)
 
 
+def first_index(cond: torch.Tensor) -> torch.Tensor:
+    """(L, m) bool -> (L,) int64 lowest index where cond holds; m if none.
+
+    The tie rule of ``jnp.argmax``/``argmin``, computed explicitly rather
+    than trusting a torch tie order."""
+    m = cond.shape[-1]
+    idx = torch.arange(m, device=cond.device)
+    return torch.where(cond, idx, m).amin(dim=-1)
+
+
+# -- the instance axis ---------------------------------------------------------
+
+
+def for_task_rows(data: ProblemData, rows_per_instance: int) -> ProblemData:
+    """``data`` for a task batch laid out instance-major, ``rows_per_instance``
+    rows each (the plane's P·lanes): row t belongs to instance
+    t // rows_per_instance.  One instance needs no map."""
+    B = data.adj.shape[0]
+    if B == 1:
+        return data._replace(inst=None)
+    rows = torch.arange(B * rows_per_instance, device=data.adj.device)
+    return data._replace(inst=(rows // rows_per_instance).to(torch.int32))
+
+
+def row_instances(data: ProblemData, T: int):
+    """The (T,) instance map of a T-row task batch, or None (instance 0)."""
+    if data.inst is None:
+        if data.adj.shape[0] != 1:
+            raise ValueError(
+                f"ProblemData holds {data.adj.shape[0]} instances but no task "
+                f"row map: set it with for_task_rows"
+            )
+        return None
+    if data.inst.shape[0] != T:
+        raise ValueError(
+            f"task row map has {data.inst.shape[0]} rows, the batch has {T}"
+        )
+    return data.inst
+
+
+def adj_rows(data: ProblemData, u: torch.Tensor) -> torch.Tensor:
+    """(T,) vertices -> (T, W) adjacency rows, each from its task's instance."""
+    inst = row_instances(data, u.shape[0])
+    if inst is None:
+        return data.adj[0][u]
+    return data.adj[inst, u]
+
+
 def degrees_batch(data: ProblemData, masks: torch.Tensor) -> torch.Tensor:
     """(L, W) task masks -> (L, n) induced degrees, -1 outside the mask.
 
     The branching hot spot: ONE ``batched_degrees`` call for the whole lane
-    batch, the CUDA kernel on the card and its plain version on the CPU."""
+    batch of every instance, the CUDA kernel on the card and its plain
+    version on the CPU."""
     from repro_torch.kernels.bitset_ops.ops import degrees_op
 
-    return degrees_op(data.adj, masks)
+    return degrees_op(data.adj, masks, row_instances(data, masks.shape[0]))
+
+
+def expand_stats_batch(data: ProblemData, masks: torch.Tensor, sols: torch.Tensor):
+    """(L, W) masks/sols -> (deg (L, n), pc_mask (L,), pc_sol (L,)).
+
+    The fused expand panel (degrees + both popcounts): ONE
+    ``batched_expand_stats`` call for the whole lane batch of every
+    instance, the CUDA kernel on the card and its plain version on the CPU."""
+    from repro_torch.kernels.bitset_ops.ops import expand_stats_op
+
+    return expand_stats_op(
+        data.adj, masks, sols, row_instances(data, masks.shape[0])
+    )
 
 
 def edge_count(deg: torch.Tensor) -> torch.Tensor:
@@ -201,9 +271,35 @@ def initial_bound(problem: BranchingProblem, g, mode: str, k) -> int:
 
 
 def make_data(problem: BranchingProblem, g, device) -> ProblemData:
-    """Per-instance device tensors from a host graph, on ``device``."""
-    adj = np.ascontiguousarray(problem.host_adj(g), dtype=np.uint32)
-    return ProblemData(n=int(g.n), adj=torch.from_numpy(adj.view(np.int32)).to(device))
+    """One instance's tensors from a host graph, on ``device`` (B = 1)."""
+    return make_batch_data(problem, [g], g.n, g.W, device)
+
+
+def make_batch_data(
+    problem: BranchingProblem, graphs, n_max: int, W: int, device
+) -> ProblemData:
+    """Pack B same-width instances into padded (B, n_max, W) tensors.
+
+    Padding rows are zero (isolated, never-in-mask vertices), so they change
+    no branching decision for a problem whose initial mask covers only the
+    real vertices: the batched trace stays bit-identical to the solo one."""
+    adj = np.zeros((len(graphs), n_max, W), np.uint32)
+    for b, g in enumerate(graphs):
+        adj[b, : g.n, :] = np.asarray(problem.host_adj(g), np.uint32)
+    return ProblemData(
+        n=np.array([g.n for g in graphs], np.int32),
+        adj=torch.from_numpy(adj.view(np.int32)).to(device),
+    )
+
+
+def slice_instances(data: ProblemData, sel) -> ProblemData:
+    """Select instances along the batch axis (host-side compaction); the
+    task row map is the plane's to set again."""
+    sel = np.asarray(sel, np.int64)
+    return ProblemData(
+        n=data.n[sel],
+        adj=data.adj[torch.from_numpy(sel).to(data.adj.device)],
+    )
 
 
 def expand_frontier(

@@ -1,7 +1,8 @@
-"""Sequential minimum-vertex-cover branching solver (paper Algorithm 8), host.
+"""Sequential branching solvers on the host: minimum vertex cover (paper
+Algorithm 8), maximum clique and maximum independent set.
 
-A copy of the vertex-cover part of ``repro.problems.sequential``: the port
-keeps its own ground truth and imports nothing of the JAX package.
+A copy of ``repro.problems.sequential``: the port keeps its own ground
+truth and imports nothing of the JAX package.
 
 Branch rule: pick a maximum-degree vertex u; either u is in the cover
 (recurse on G-u, S+{u}) or all of N(u) is (recurse on G-N(u)-u, S+N(u)).
@@ -22,6 +23,7 @@ import numpy as np
 
 from repro_torch.graphs.bitgraph import (
     BitGraph,
+    complement,
     mask_full,
     pack_masks,
     popcount_rows,
@@ -177,6 +179,108 @@ def solve_sequential(
         found = best_size <= k
         return (best_size if found else -1), (best_sol if found else None), stats
     return best_size, best_sol, stats
+
+
+# -- max-clique / maximum-independent-set references ---------------------------
+#
+# Ground truth for the `max_clique` and `mis` plugins, mirroring the device
+# brancher: tasks are (candidate-set P, clique R) packed-bitset pairs; branch
+# on a maximum-degree candidate u -- either u joins the clique (candidates
+# shrink to P & N(u)) or u is discarded.  Bound: |R| + |P|.  MIS is
+# max-clique on the complement.
+
+
+def branch_once_clique(
+    g: BitGraph, mask: np.ndarray, sol_mask: np.ndarray
+) -> tuple[list[tuple[np.ndarray, np.ndarray]], tuple[np.ndarray, np.ndarray] | None]:
+    """One candidate-set expansion on the (branching) graph ``g``.
+
+    ``mask`` = candidates P, ``sol_mask`` = current clique R.  Terminal when
+    no candidates remain.  Children come include-u first, matching the
+    device brancher's order.
+    """
+    deg = g.degrees(mask)
+    if not (deg >= 0).any():  # P empty
+        return [], (mask, sol_mask)
+    u = int(np.argmax(deg))  # max degree within P, ties -> lowest index
+    u_bit = single_bit(u, g.W)
+    nb = g.adj[u] & mask
+    left = (nb, sol_mask | u_bit)  # u joins: candidates must be neighbours
+    right = (mask & ~u_bit, sol_mask)  # u discarded
+    return [left, right], None
+
+
+def solve_sequential_max_clique(
+    g: BitGraph,
+    mode: str = "bnb",
+    k: int | None = None,
+    node_limit: int | None = None,
+) -> tuple[int, np.ndarray | None, SeqStats]:
+    """Exact maximum clique.  Returns (best_size, best_sol_mask, stats).
+
+    mode='bnb' : maximize |R|.
+    mode='fpt' : decision "is there a clique of size >= k"; stops at the
+                 first hit, returns (-1, None, stats) when unsatisfiable.
+    """
+    if mode == "fpt" and k is None:
+        raise ValueError("fpt mode requires k")
+    stats = SeqStats()
+    best_size = 0
+    best_sol = np.zeros(g.W, dtype=np.uint32)  # the empty clique
+    floor = (k - 1) if mode == "fpt" else 0  # prune below the decision target
+    stack = [(mask_full(g.n), np.zeros(g.W, dtype=np.uint32), 0)]
+    while stack:
+        if node_limit is not None and stats.nodes >= node_limit:
+            break
+        mask, sol_mask, depth = stack.pop()
+        stats.nodes += 1
+        stats.max_depth = max(stats.max_depth, depth)
+        r = int(popcount_rows(sol_mask))
+        if r + int(popcount_rows(mask)) <= max(best_size, floor):
+            stats.pruned += 1
+            continue
+        children, terminal = branch_once_clique(g, mask, sol_mask)
+        if terminal is not None:
+            if r > best_size:
+                best_size, best_sol = r, sol_mask
+                stats.solutions += 1
+                if mode == "fpt" and best_size >= k:
+                    break
+            continue
+        # push right first so left (include-u, the promising child) pops first
+        for cmask, csol in reversed(children):
+            stack.append((cmask, csol, depth + 1))
+    if mode == "fpt":
+        found = best_size >= k
+        return (best_size if found else -1), (best_sol if found else None), stats
+    return best_size, best_sol, stats
+
+
+def solve_sequential_mis(
+    g: BitGraph,
+    mode: str = "bnb",
+    k: int | None = None,
+    node_limit: int | None = None,
+) -> tuple[int, np.ndarray | None, SeqStats]:
+    """Exact maximum independent set = max clique on the complement graph.
+    The returned mask is the independent set in the ORIGINAL graph."""
+    return solve_sequential_max_clique(
+        complement(g), mode=mode, k=k, node_limit=node_limit
+    )
+
+
+def verify_clique(g: BitGraph, sol_mask: np.ndarray) -> bool:
+    """True iff every pair of vertices in sol_mask is adjacent in g."""
+    sel = np.flatnonzero(unpack_mask(sol_mask, g.n))
+    dense = g.to_dense()
+    return all(dense[u, v] for i, u in enumerate(sel) for v in sel[i + 1 :])
+
+
+def verify_independent_set(g: BitGraph, sol_mask: np.ndarray) -> bool:
+    """True iff no edge of g has both endpoints in sol_mask."""
+    sel = unpack_mask(sol_mask, g.n)
+    dense = g.to_dense()
+    return not (dense & sel[:, None] & sel[None, :]).any()
 
 
 def verify_cover(g: BitGraph, sol_mask: np.ndarray) -> bool:

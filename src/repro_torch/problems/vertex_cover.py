@@ -8,7 +8,8 @@ package's per-task functions vmapped over the lanes.
 Every degree panel — the two per explore round in :func:`expand_tasks` and
 the one per reduction sweep — is one :func:`degrees_batch` call over the
 whole batch, i.e. one launch of the CUDA ``batched_degrees`` kernel on the
-card.
+card, and on the batched plane the batch holds the lanes of every instance:
+each task row reads its own instance's adjacency (``base.adj_rows``).
 
 Ties: the pivot ``u`` is the FIRST vertex of maximum degree and every rule
 picks the first qualifying vertex, as ``jnp.argmax``/``min`` do; the port
@@ -26,13 +27,17 @@ from repro_torch.problems.base import (
     ExpandResult,
     ProblemData,
     WorkCounters,
+    adj_rows,
     degrees_batch,
     edge_count,
+    first_index,
     pack_bits,
     popcount,
+    row_instances,
     single_bit,
     unpack_bits,
 )
+from repro_torch.kernels.bitset_ops.ref import task_adjacency
 
 # reduction sweeps between host checks of "did any lane change": a sweep on
 # a lane at its fixpoint changes nothing, so checking less often than every
@@ -49,13 +54,6 @@ def lower_bound(deg: torch.Tensor) -> torch.Tensor:
     return torch.where(maxdeg > 0, ceil, 0).to(torch.int32)
 
 
-def _first_index(cond: torch.Tensor) -> torch.Tensor:
-    """(L, m) bool -> (L,) int64 lowest index where cond holds; m if none."""
-    m = cond.shape[-1]
-    idx = torch.arange(m, device=cond.device)
-    return torch.where(cond, idx, m).amin(dim=-1)
-
-
 # -- reduction rules (paper §4.1, Chen-Kanj-Jia) -------------------------------
 
 
@@ -63,8 +61,7 @@ def _reduce_step(data: ProblemData, masks, sols):
     """One reduction sweep over the lane batch -> (masks, sols, changed (L,)).
 
     A lane where no rule applies comes back unchanged."""
-    adj = data.adj
-    n, W = adj.shape
+    n, W = data.adj.shape[-2:]
     L = masks.shape[0]
     deg = degrees_batch(data, masks)  # (L, n)
     inside = deg >= 0
@@ -75,27 +72,28 @@ def _reduce_step(data: ProblemData, masks, sols):
     mask_r1 = masks & ~pack_bits(iso, W)
 
     # Rule 2: the first degree-1 vertex, one per sweep.
-    u2 = _first_index(inside & (deg == 1))
+    u2 = first_index(inside & (deg == 1))
     has_u2 = u2 < n
     u2c = u2.clamp(max=n - 1)
-    nb2 = adj[u2c] & masks
+    nb2 = adj_rows(data, u2c) & masks
     sol_r2 = sols | nb2
     mask_r2 = masks & ~(nb2 | single_bit(u2c, W))
 
     # Rule 3: the first degree-2 vertex whose two neighbours are adjacent.
     # Unpacks an (n, n) neighbour matrix per lane, as the JAX sweep does.
-    bits = unpack_bits(adj[None, :, :] & masks[:, None, :], n)  # (L, n, n)
-    vidx = torch.arange(n, dtype=torch.int32, device=adj.device)
+    rows = task_adjacency(data.adj, row_instances(data, L))  # (1 or L, n, W)
+    bits = unpack_bits(rows & masks[:, None, :], n)  # (L, n, n)
+    vidx = torch.arange(n, dtype=torch.int32, device=masks.device)
     first_nb = torch.where(bits, vidx, n).amin(dim=-1)
     last_nb = torch.where(bits, vidx, -1).amax(dim=-1)
     fc = first_nb.clamp(0, n - 1).long()
     lc = last_nb.clamp(0, n - 1).long()
-    lane = torch.arange(L, device=adj.device)[:, None]
+    lane = torch.arange(L, device=masks.device)[:, None]
     vw_edge = bits[lane, fc, lc]  # adj is symmetric: v's row has bit w
-    u3 = _first_index(inside & (deg == 2) & vw_edge)
+    u3 = first_index(inside & (deg == 2) & vw_edge)
     has_u3 = u3 < n
     u3c = u3.clamp(max=n - 1)
-    nb3 = adj[u3c] & masks
+    nb3 = adj_rows(data, u3c) & masks
     sol_r3 = sols | nb3
     mask_r3 = masks & ~(nb3 | single_bit(u3c, W))
 
@@ -120,7 +118,7 @@ def reduce_instance(
     lane reaches its fixpoint within n+1 sweeps and the bound never binds;
     further sweeps leave it as it is.  So the batch runs whole sweeps and the
     host checks ``changed.any()`` every :data:`REDUCE_CHECK_EVERY` sweeps."""
-    n = data.adj.shape[0]
+    n = data.adj.shape[-2]
     sweeps = 0
     while sweeps < n + 1:
         for _ in range(REDUCE_CHECK_EVERY):
@@ -139,12 +137,12 @@ def reduce_instance(
 def _branch_reduced(data: ProblemData, rmasks, rsols):
     """Branch every REDUCED lane on its first maximum-degree vertex u:
     left = (G-u, S+{u}), right = (G-N[u], S+N(u)).  -> (step, maxdeg)."""
-    W = data.adj.shape[1]
+    W = data.adj.shape[-1]
     deg = degrees_batch(data, rmasks)  # (L, n)
     maxdeg = deg.amax(dim=-1)
-    u = _first_index(deg == maxdeg[:, None])
+    u = first_index(deg == maxdeg[:, None])
     u_bit = single_bit(u, W)
-    nb = data.adj[u] & rmasks
+    nb = adj_rows(data, u) & rmasks
     step = BranchStep(
         left_mask=rmasks & ~u_bit,
         left_sol=rsols | u_bit,

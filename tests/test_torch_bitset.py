@@ -60,7 +60,7 @@ def test_plain_degrees_match_jax_ref(n, T):
     # the wrapper on CPU tensors is the plain version, and launches nothing
     counts.reset()
     assert (batched_degrees(t32(g.adj), t32(masks)).numpy() == want).all()
-    assert (degrees_op(t32(g.adj), t32(masks), use_kernel=False).numpy() == want).all()
+    assert (degrees_op(t32(g.adj), t32(masks)).numpy() == want).all()
     assert counts.snapshot() == {}
 
 

@@ -2,7 +2,8 @@
 
 * importing every ``repro_torch`` module loads no ``jax*`` module and no
   ``repro``/``repro.*`` module (checked in a fresh interpreter);
-* no source file under ``src/repro_torch`` imports them (AST scan);
+* no source file under ``src/repro_torch``, and not ``chip_smoke.py``,
+  imports them (AST scan);
 * ``SolverSession()`` with CUDA absent raises instead of running on the CPU.
 """
 
@@ -47,6 +48,9 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.kernels.bitset_ops.kernel",
         "repro_torch.launch.solve",
         "repro_torch.problems.vertex_cover",
+        "repro_torch.problems.max_clique",
+        "repro_torch.problems.mis",
+        "repro_torch.api.cache",
     ):
         assert name in report["modules"]
 
@@ -62,7 +66,7 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_sources_import_neither_jax_nor_repro():
-    files = sorted(PKG.rglob("*.py"))
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert files
     offenders = [
         (str(p.relative_to(ROOT)), root)
@@ -99,7 +103,11 @@ def test_unported_features_refuse():
         session = SolverSession(config=SolveConfig(num_workers=2, **kw), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             session.solve(g)
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
-        SolverSession(problem="max_clique", device="cpu")
+    session = SolverSession(config=SolveConfig(num_workers=2, checkpoint_dir="ckpt"),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        session.solve_many([g, g])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        SolverSession(problem="max_clique", device="cpu").submit(g)
     with pytest.raises(ValueError, match="ROADMAP queue 1, item 12"):
         SolverSession(backend="protocol_sim", device="cpu")
