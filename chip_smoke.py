@@ -34,7 +34,27 @@ Phases (any failed check raises, so the exit code is not 0):
    solo solve does; and ``clique_smoke``'s configuration gives [4, 6, 4, 4];
 7. paper size — the vertex-cover main path: G(600, 4/599, seed 0) with 128
    workers, a bounded anytime solve (``--paper-max-rounds``, 8 supersteps),
-   run twice.
+   run twice;
+8. LM kernels vs plain — ``flash_attention`` against its plain version and
+   the f32 oracle on the JAX package's attention cases in f32 and bf16, and
+   at the serving shapes (qwen1.5-0.5b's prefill, starcoder2-3b's GQA
+   widths, a window, one query against 1,057 keys); ``wkv6`` against
+   ``wkv6_ref`` on the JAX package's cases with and without a state and at
+   RWKV6-3B's prefill; then both timed with CUDA events at the serving
+   shapes, beside their plain versions (and attention beside
+   ``scaled_dot_product_attention``, which the port never calls);
+9. the LM golden — ``src/repro_torch/data/golden_lm.json``, made by the JAX
+   package for the qwen1.5, starcoder2 and rwkv6 smoke configs in f32:
+   last-position logits and greedy tokens reproduced through the kernels;
+10. LM serving at full width — qwen1.5-0.5b and rwkv6-3b in bf16 with the
+   port's seeded init: a prefill of 4 prompts of 1,024 tokens (one kernel
+   launch per layer) and greedy decode of 32 tokens; each layer's attention
+   or time-mix output with the kernel against the plain op computed in f64;
+   the whole bf16 forward with the kernel against the plain one, held to the
+   witness gap between the plain route and its f64 twin; in f32 the kernel
+   forward against the plain one; the decode path's last prompt logits
+   against the forward's; and for rwkv6 the prompt as one chunk against two
+   halves.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it.  The last three lines of standard output are the kernels JSON line,
@@ -45,6 +65,7 @@ nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -497,6 +518,494 @@ def phase_paper(dev, max_rounds: int) -> dict:
     return launches
 
 
+# -- the LM serving path (phases 8-10) ------------------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the
+# attention products' bound; PEAK_OPS_PER_S is the f32 rate
+PEAK_BF16_FLOPS = 989e12
+# JAX's attention cases (tests/test_kernels_attention.py:22-30) and wkv6
+# cases (tests/test_kernels_wkv6.py:23-29), with JAX's tolerances
+ATTN_CASES = [
+    dict(B=2, Sq=64, Sk=64, Hq=4, Hkv=2, D=32, causal=True, window=None),
+    dict(B=1, Sq=128, Sk=128, Hq=4, Hkv=1, D=64, causal=True, window=32),
+    dict(B=2, Sq=1, Sk=96, Hq=8, Hkv=4, D=32, causal=True, window=None),
+    dict(B=1, Sq=50, Sk=50, Hq=2, Hkv=2, D=16, causal=False, window=None),
+    dict(B=1, Sq=70, Sk=70, Hq=2, Hkv=1, D=32, causal=True, window=None),
+    dict(B=1, Sq=1, Sk=77, Hq=4, Hkv=2, D=64, causal=True, window=24),
+    dict(B=3, Sq=33, Sk=33, Hq=6, Hkv=3, D=8, causal=True, window=16),
+]
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the serving shapes: qwen1.5-0.5b's prefill (B 4, S 1024, 16 heads of 64),
+# starcoder2-3b's GQA widths, a window, one query against a 1,057-key cache
+QWEN_ATTN = dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=None)
+SERVING_ATTN = [
+    QWEN_ATTN,
+    dict(B=4, Sq=1024, Sk=1024, Hq=24, Hkv=2, D=128, causal=True, window=None),
+    dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=256),
+    dict(B=4, Sq=1, Sk=1057, Hq=16, Hkv=16, D=64, causal=True, window=None),
+]
+WKV_CASES = [(2, 64, 2, 16, 16), (1, 128, 4, 32, 32), (2, 96, 1, 8, 24),
+             (1, 32, 2, 64, 64), (1, 64, 3, 16, 48), (2, 50, 2, 16, 16)]
+RWKV_WKV = (4, 1024, 40, 64, 64)  # RWKV6-3B's prefill: B, T, H, K, V
+WKV_TOL = 3e-4
+# the golden (f32 throughout, another summation order than JAX's on the CPU;
+# tests/test_torch_golden_lm.py holds the port to it on the CPU as well)
+GOLDEN_LM_TOL = 1e-4
+SERVE = dict(batch=4, prompt_len=1024, gen=32, seed=0)
+# bf16 on the card, three routes through the same weights: "kernel" (the
+# port's default), "plain" (the JAX package's default: blockwise attention,
+# which rounds q.k to bf16 where the kernel keeps f32; wkv6_ref, the f32
+# recurrence) and "f64" (the plain op computed in f64 and rounded to the plain
+# op's output dtype, a route that differs from "plain" only in the rounding
+# inside the op).  Readings are ||a - b|| / ||b||.  Per layer, fed the kernel
+# route's input, the attention or time-mix output h (without the residual)
+# of the kernel against the f64 route: both round once to bf16 from f32 or
+# better, so they differ by at most one bf16 step (2^-8 relative) an element
+# (an H100 read 1.7e-4 for qwen1.5-0.5b and 1.3e-4 for rwkv6-3b)
+SERVE_H_TOL = 2.0**-8
+# Whole bf16 forwards: over 24-32 random layers any rounding difference
+# compounds, so a kernel-vs-plain logit gap is held against the witness, the
+# gap between "plain" and "f64": the kernel must be no farther from the f64
+# route than WITNESS_FACTOR times the plain route is.  On an H100: kernel vs
+# plain 1.9% and 11.4%, f64 vs plain 1.9% and 11.1%, kernel vs f64 1.6% and
+# 10.9% (qwen1.5-0.5b, rwkv6-3b): a route known to be right diverges as far
+WITNESS_FACTOR = 2.0
+# f32 at full width (the same weights cast to f32, TF32 off): the kernel
+# forward against the plain one over the whole prompt, the decode path
+# against the forward over a 64-token prompt (JAX's test_decode_matches_forward),
+# and rwkv6's prompt as one chunk against two halves.  Only summation orders
+# differ (the recurrence, GEMMs of other row counts), but depth compounds them:
+# on an H100 qwen gave 2.5e-6 (forward) and 1.6e-6 (decode), rwkv6 4.4e-5,
+# 2.2e-4 and 1.1e-4 (chunks)
+F32_REL_TOL = 1e-3
+F32_DECODE_PROMPT = 64
+# the bf16 decode path's logits at the last of the 1,024 prompt tokens against
+# the forward's, about twice the readings of an H100 (1.9% and 10.9%; a
+# decode fault -- a wrong position, cache slot or state -- gives errors of
+# order 1)
+BF16_DECODE_TOL = {"qwen1.5-0.5b": 0.04, "rwkv6-3b": 0.22}
+
+
+def _attn_inputs(c, dtype, dev, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype) for shape in (
+        (c["B"], c["Sq"], c["Hq"], c["D"]), (c["B"], c["Sk"], c["Hkv"], c["D"]),
+        (c["B"], c["Sk"], c["Hkv"], c["D"]))]
+
+
+def _wkv_inputs(B, T, H, K, V, dev, seed, with_state=True):
+    """The JAX test's draws: r, k, v ~ 0.5 N(0, 1), decay exp(-exp(-w)) with
+    w ~ U(0.2, 3), u ~ 0.3 N(0, 1), state ~ 0.2 N(0, 1)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g, device=dev) * 0.5
+    r, k, v = f(B, T, H, K), f(B, T, H, K), f(B, T, H, V)
+    w = torch.rand((B, T, H, K), generator=g, device=dev) * 2.8 + 0.2
+    return r, k, v, torch.exp(-torch.exp(-w)), f(H, K) * 0.6, (
+        f(B, H, K, V) * 0.4 if with_state else None)
+
+
+def _attn_work(c, dtype_bytes: int):
+    """Bytes (q, k, v read once, out written once) and FLOPs (2 D for q.k and
+    2 D for p.v per unmasked query-key pair) of one attention call."""
+    q_n = c["B"] * c["Sq"] * c["Hq"] * c["D"]
+    kv_n = c["B"] * c["Sk"] * c["Hkv"] * c["D"]
+    pairs = 0
+    for i in range(c["Sq"]):
+        qpos = i + c["Sk"] - c["Sq"]
+        hi = qpos + 1 if c["causal"] else c["Sk"]
+        lo = max(0, qpos - c["window"] + 1) if c["window"] else 0
+        pairs += max(0, hi - lo)
+    return dtype_bytes * (2 * q_n + 2 * kv_n), 4 * c["D"] * pairs * c["B"] * c["Hq"]
+
+
+def phase_lm_kernels(dev) -> dict:
+    """flash_attention and wkv6 against their plain versions, then timed.
+    Returns their fields of the kernels line (launches aside), by name."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attention import (
+        attention_ref,
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    attn_err = {"float32": 0.0, "bfloat16": 0.0}
+    n_attn = 0
+    counts.reset()
+    for i, c in enumerate(ATTN_CASES):
+        kw = dict(causal=c["causal"], window=c["window"])
+        for name, dt in dtypes.items():
+            q, k, v = _attn_inputs(c, dt, dev, i)
+            got = flash_attention(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            for want in (flash_attention_plain(q, k, v, **kw).float(),
+                         attention_ref(q.float(), k.float(), v.float(), **kw)):
+                e = float((got - want).abs().max())
+                attn_err[name] = max(attn_err[name], e)
+                check(e < ATTN_TOL[name], f"flash_attention {name} {c}: max abs err {e}")
+            n_attn += 1
+    serving_err = {}
+    for i, c in enumerate(SERVING_ATTN):
+        kw = dict(causal=c["causal"], window=c["window"])
+        for name, dt in dtypes.items():
+            q, k, v = _attn_inputs(c, dt, dev, 100 + i)
+            got = flash_attention(q, k, v, **kw).float()
+            want = flash_attention_plain(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            e = float(diff.max())
+            if name == "float32":
+                check(e < ATTN_TOL[name], f"flash_attention f32 at {c}: max abs err {e}")
+            else:
+                # both sides hold f32 and round once to bf16: they may differ
+                # by one bf16 step, at most 2^-7 of the larger value
+                step = 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6
+                check(bool((diff <= step).all()),
+                      f"flash_attention bf16 at {c}: more than one bf16 step from "
+                      f"the plain version (max abs err {e})")
+            serving_err[f"{c['Hq']}/{c['Hkv']}x{c['D']} Sq={c['Sq']} "
+                        f"w={c['window']} {name}"] = e
+            n_attn += 1
+    check(counts.snapshot() == {"flash_attention": n_attn},
+          f"flash_attention launches {counts.snapshot()} != {n_attn} calls")
+    print(f"[smoke] flash_attention == plain version and f32 oracle on "
+          f"{len(ATTN_CASES)} JAX cases x 2 dtypes (max abs err {attn_err}); at the "
+          f"serving shapes (bf16 within one bf16 step): {serving_err}")
+
+    wkv_err = 0.0
+    for i, (B, T, H, K, V) in enumerate(WKV_CASES + [RWKV_WKV]):
+        for with_state in (True, False):
+            r, k, v, d, u, s0 = _wkv_inputs(B, T, H, K, V, dev, 200 + i, with_state)
+            o, s = wkv6(r, k, v, d, u, s0)
+            o_ref, s_ref = wkv6_ref(r, k, v, d, u, s0)
+            torch.cuda.synchronize()
+            e = max(float((o - o_ref).abs().max()), float((s - s_ref).abs().max()))
+            wkv_err = max(wkv_err, e)
+            check(e < WKV_TOL, f"wkv6 at {(B, T, H, K, V)} state={with_state}: err {e}")
+    print(f"[smoke] wkv6 == wkv6_ref on {2 * (len(WKV_CASES) + 1)} cases "
+          f"(JAX's and RWKV6-3B's prefill, with and without a state; max abs err "
+          f"{wkv_err:.3g} < {WKV_TOL})")
+
+    out = {}
+    # attention at qwen1.5-0.5b's prefill shape, bf16
+    c = QWEN_ATTN
+    q, k, v = _attn_inputs(c, torch.bfloat16, dev, 300)
+    kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
+    mine = flash_attention(q, k, v, causal=True)
+    e = float((sdpa.float() - mine.float()).abs().max())
+    check(e < ATTN_TOL["bfloat16"], f"scaled_dot_product_attention disagrees: {e}")
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    moved, flops = _attn_work(c, 2)
+    bound, by = _bound_ms(moved, 0)
+    bound_ops = flops / PEAK_BF16_FLOPS * 1e3
+    if bound_ops > bound:
+        bound, by = bound_ops, "operations"
+    print(f"[smoke] flash_attention {c} bf16: kernel {kernel_ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms "
+          f"(agrees within {e:.3g}), bound {bound:.6f} ms ({moved} B, {flops} FLOP)")
+    out["flash_attention"] = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+        "max_abs_err": max(attn_err.values()),
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library_ms,
+    }
+
+    # wkv6 at RWKV6-3B's prefill, f32, no initial state (the forward's call)
+    B, T, H, K, V = RWKV_WKV
+    r, k, v, d, u, _ = _wkv_inputs(B, T, H, K, V, dev, 400, with_state=False)
+    kernel_ms = time_ms(lambda: wkv6(r, k, v, d, u))
+    plain_ms = time_ms(lambda: wkv6_ref(r, k, v, d, u), reps=5, warmup=1)
+    # r, k, v, decay, u read once; out and the final state written once; per
+    # (b, t, h, k, v) a multiply for k v and two fused multiply-adds (the
+    # state's decay-and-add, the output's r-weighted sum): 5 FLOP
+    moved = 4 * (4 * B * T * H * K + H * K + B * T * H * V + B * H * K * V)
+    ops = 5 * B * T * H * K * V
+    bound, by = _bound_ms(moved, ops)
+    print(f"[smoke] wkv6 (B, T, H, K, V)={RWKV_WKV} f32: kernel {kernel_ms:.6f} ms, "
+          f"plain {plain_ms:.6f} ms (median of 5), bound {bound:.6f} ms "
+          f"({moved} B, {ops} FLOP)")
+    out["wkv6"] = {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:92",
+        "max_abs_err": wkv_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call computes the recurrence
+    }
+    return out
+
+
+def phase_golden_lm(dev) -> None:
+    """golden_lm.json (JAX-made, f32 smoke configs) through the kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import counts
+    from repro_torch.launch.serve_lm import greedy_decode
+    from repro_torch.models.convert import load_jax_params, numpy_params
+    from repro_torch.models.registry import get_model
+
+    golden = json.loads((ROOT / "src" / "repro_torch" / "data" / "golden_lm.json").read_text())
+    for arch, run in golden.items():
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        params = load_jax_params(model.init(device=dev), numpy_params(cfg, run["weights_seed"]))
+        rng = np.random.default_rng(run["prompt_seed"])
+        toks = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (run["batch"], run["prompt_len"]))).to(dev)
+        counts.reset()
+        logits = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launches = counts.snapshot()
+        kernel = "wkv6" if cfg.family == "ssm" else "flash_attention"
+        check(launches == {kernel: cfg.n_layers},
+              f"golden {arch}: launches {launches}, want {cfg.n_layers} {kernel}")
+        want = torch.tensor(run["result"]["last_logits"], device=dev)
+        e = float((logits[:, -1] - want).abs().max())
+        check(e < GOLDEN_LM_TOL, f"golden {arch}: last logits max abs err {e}")
+        gen, _ = greedy_decode(model, params, toks, run["gen"])
+        check(gen.tolist() == run["result"]["tokens"],
+              f"golden {arch}: greedy tokens {gen.tolist()} != {run['result']['tokens']}")
+        print(f"[smoke] golden_lm {cfg.name}: last logits within {e:.3g} of JAX's "
+              f"(< {GOLDEN_LM_TOL}), {run['gen']} greedy tokens equal, "
+              f"launches per forward {launches}")
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+PLAIN_ROUTE = {"dense": ("attn_impl", "blockwise"), "ssm": ("wkv_impl", "ref")}
+
+
+def _wkv6_f64(r, k, v, decay, u, initial_state=None, *, impl):
+    """wkv6_ref's recurrence in f64, rounded to f32."""
+    import torch
+
+    B, T, H, K = r.shape
+    r, k, v, decay, u = (t.double() for t in (r, k, v, decay, u))
+    S = (torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float64, device=r.device)
+         if initial_state is None else initial_state.double())
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u[None, :, :, None] * kv))
+        S = decay[:, t, :, :, None] * S + kv
+    return torch.stack(outs, dim=1).float(), S.float()
+
+
+def _attention_f64(q, k, v, *, causal, window, impl):
+    """Blockwise attention in f64, rounded to q's dtype."""
+    from repro_torch.kernels.flash_attention.ops import blockwise_attention
+
+    return blockwise_attention(q.double(), k.double(), v.double(), causal=causal,
+                               window=window).to(q.dtype)
+
+
+@contextlib.contextmanager
+def _route(cfg, route):
+    """Yields the model functions' keyword for ``route``: "kernel", "plain"
+    or "f64" (the plain route with its op swapped, for the duration, for the
+    same op in f64)."""
+    from unittest import mock
+
+    from repro_torch.models import layers, rwkv6
+
+    key, plain = PLAIN_ROUTE[cfg.family]
+    if route == "kernel":
+        yield {}
+    elif route == "plain":
+        yield {key: plain}
+    else:
+        target = (rwkv6, "wkv6_op", _wkv6_f64) if cfg.family == "ssm" else (
+            layers, "attention_op", _attention_f64)
+        with mock.patch.object(*target):
+            yield {key: plain}
+
+
+def _forward(cfg, params, toks, route):
+    from repro_torch.models import rwkv6, transformer
+
+    fwd = rwkv6.forward if cfg.family == "ssm" else transformer.forward
+    with _route(cfg, route) as kw:
+        return fwd(params, toks, **kw)
+
+
+def _layer_h(cfg, params, toks) -> dict:
+    """Per layer, fed the kernel route's input: the attention (dense) or
+    time-mix (ssm) output h of each route.  Returns, for each pair of
+    routes, the largest ||a - b|| / ||b|| over the layers."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv6, transformer
+
+    pairs = (("kernel", "f64"), ("kernel", "plain"), ("f64", "plain"))
+    worst = {f"{a}/{b}": 0.0 for a, b in pairs}
+    with torch.no_grad():
+        x = params.embed[toks].to(L.torch_dtype(cfg))
+        positions = torch.arange(x.shape[1], device=x.device)
+        for bp in params.blocks:
+            xn = L.rmsnorm(x, bp.ln1, cfg.norm_eps)
+            h = {}
+            for route in ("kernel", "plain", "f64"):
+                with _route(cfg, route) as kw:
+                    if cfg.family == "ssm":
+                        h[route] = rwkv6.tmix_apply(cfg, bp.tmix, xn, **kw)[0]
+                    else:
+                        h[route] = L.attention_apply(cfg, bp.attn, xn, positions, **kw)[0]
+            for a, b in pairs:
+                worst[f"{a}/{b}"] = max(worst[f"{a}/{b}"], _rel(h[a], h[b]))
+            if cfg.family == "ssm":
+                x, _ = rwkv6.block_apply(cfg, bp, x)
+            else:
+                x, _ = transformer.block_apply(cfg, bp, x, positions)
+    return worst
+
+
+def _f32_copy(cfg, params, dev):
+    """The same weights in an f32 model of the same config."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_model
+
+    model = get_model(dataclasses.replace(cfg, dtype="float32"))
+    copy = model.init(device="meta").to_empty(device=dev)
+    copy.load_state_dict(params.state_dict())
+    return model, copy
+
+
+def phase_serve_lm(dev) -> dict:
+    """qwen1.5-0.5b and rwkv6-3b at full width, bf16: prefill and greedy
+    decode, then the checks.  Returns the serving runs' launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts
+    from repro_torch.launch.serve_lm import greedy_decode
+    from repro_torch.models.registry import get_model
+
+    B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    main_launches = {}
+    for arch in ("qwen1.5-0.5b", "rwkv6-3b"):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(SERVE["seed"]), dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        toks = torch.from_numpy(
+            np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (B, P))).to(dev)
+        kernel = "wkv6" if cfg.family == "ssm" else "flash_attention"
+        model.forward(params, {"tokens": toks})  # warm-up: cuBLAS and kernel loads
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        # the serving path: prefill, then greedy decode, launches counted
+        counts.reset()
+        t0 = time.perf_counter()
+        logits = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, prompt_logits = greedy_decode(model, params, toks, gen)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = counts.snapshot()
+        main_launches[kernel] = launches.get(kernel, 0)
+        check(launches == {kernel: cfg.n_layers},
+              f"{arch}: launches {launches}, want {cfg.n_layers} {kernel} (one per "
+              f"layer of the prefill; decode attends/steps in plain torch)")
+        check(tuple(out.shape) == (B, gen) and bool(torch.isfinite(logits).all()),
+              f"{arch}: generated {tuple(out.shape)}, logits finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        print(f"[smoke] serve {cfg.name} ({n_params} params, bf16): prefill {B}x{P} in "
+              f"{prefill_s:.6f} s = {B * P / prefill_s:.1f} tok/s; greedy decode "
+              f"{P}+{gen} steps in {decode_s:.3f} s = {1e3 * decode_s / (P + gen):.3f} "
+              f"ms/step, {B * (P + gen) / decode_s:.1f} tok/s ({B * gen / decode_s:.1f} "
+              f"generated tok/s); set-up {setup_s:.3f} s; launches {launches}")
+
+        t0 = time.perf_counter()
+        e_bf16_decode = _rel(prompt_logits, logits[:, -1])
+        check(e_bf16_decode < BF16_DECODE_TOL[arch],
+              f"{arch}: bf16 decode vs forward at the last prompt token {e_bf16_decode}")
+        del prompt_logits
+        e_h = _layer_h(cfg, params, toks)
+        check(e_h["kernel/f64"] < SERVE_H_TOL,
+              f"{arch}: a layer's h, kernel vs f64 route {e_h['kernel/f64']}")
+        # whole bf16 forwards through the three routes, and the witness
+        fwd = {"kernel": logits, "plain": _forward(cfg, params, toks, "plain"),
+               "f64": _forward(cfg, params, toks, "f64")}
+        e_fwd = {f"{a}/{b}": _rel(fwd[a], fwd[b]) for a, b in (
+            ("kernel", "plain"), ("f64", "plain"), ("kernel", "f64"))}
+        check(e_fwd["kernel/f64"] <= WITNESS_FACTOR * e_fwd["f64/plain"],
+              f"{arch}: bf16 forward, kernel vs f64 route {e_fwd['kernel/f64']} > "
+              f"{WITNESS_FACTOR} x plain vs f64 route {e_fwd['f64/plain']}")
+        del logits, fwd
+        model32, params32 = _f32_copy(cfg, params, dev)
+        del params
+        e_f32_fwd = _rel(_forward(model32.cfg, params32, toks, "kernel"),
+                         _forward(model32.cfg, params32, toks, "plain"))
+        check(e_f32_fwd < F32_REL_TOL, f"{arch}: f32 forward, kernel vs plain {e_f32_fwd}")
+        short = toks[:, :F32_DECODE_PROMPT]
+        full32 = model32.forward(params32, {"tokens": short})
+        cache = model32.init_decode_cache(B, short.shape[1], device=dev)
+        steps = [model32.decode_fn(params32, cache, short[:, t : t + 1])[0]
+                 for t in range(short.shape[1])]
+        e_f32_decode = _rel(torch.cat(steps, 1), full32)
+        check(e_f32_decode < F32_REL_TOL, f"{arch}: f32 decode vs forward {e_f32_decode}")
+        fmt = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
+        line = (f"[smoke] {cfg.name} checks: the layers' h (bf16), largest of {fmt(e_h)}; "
+                f"whole bf16 forwards {fmt(e_fwd)}; f32 forward kernel/plain "
+                f"{e_f32_fwd:.4g}; decode vs forward, bf16 at the last of {P} prompt "
+                f"tokens {e_bf16_decode:.4g}, f32 over {F32_DECODE_PROMPT} tokens "
+                f"{e_f32_decode:.4g}")
+        if cfg.family == "ssm":
+            # decode_fn over the prompt as one chunk and as two halves: the
+            # second half runs the kernel from a non-zero state (f32)
+            counts.reset()
+            fresh = lambda: model32.init_decode_cache(B, 0, device=dev)
+            one, c1 = model32.decode_fn(params32, fresh(), toks)
+            h1, halves = model32.decode_fn(params32, fresh(), toks[:, : P // 2])
+            h2, halves = model32.decode_fn(params32, halves, toks[:, P // 2 :])
+            torch.cuda.synchronize()
+            check(counts.snapshot() == {"wkv6": 3 * cfg.n_layers},
+                  f"{arch}: multi-token decode launches {counts.snapshot()}")
+            e_state = _rel(halves["wkv"], c1["wkv"])
+            e_chunks = _rel(torch.cat([h1, h2], 1), one)
+            for what, e in (("state", e_state), ("logits", e_chunks)):
+                check(e < F32_REL_TOL, f"{arch}: one chunk vs two halves, {what}: {e}")
+            line += (f"; decode_fn over the prompt, one chunk vs two halves (f32): "
+                     f"state {e_state:.4g}, logits {e_chunks:.4g}")
+        print(f"{line}; {time.perf_counter() - t0:.3f} s")
+        del params32, model32
+        torch.cuda.empty_cache()
+    return main_launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper-max-rounds", type=int, default=PAPER_MAX_ROUNDS,
@@ -542,6 +1051,17 @@ def main() -> None:
     kernels["batched_expand_stats"]["launches"] = clique.get("batched_expand_stats", 0)
     check(kernels["batched_expand_stats"]["launches"] > 0,
           "the max-clique path launched no batched_expand_stats kernel")
+
+    # every f32 comparison on the card in full f32: no TF32 (the matmul
+    # default, stated; cuDNN's default is TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.update(timed("lm_kernels", phase_lm_kernels, dev))
+    timed("golden_lm", phase_golden_lm, dev)
+    serving = timed("serve_lm", phase_serve_lm, dev)
+    for name in ("flash_attention", "wkv6"):
+        kernels[name]["launches"] = serving.get(name, 0)
+        check(kernels[name]["launches"] > 0, f"the serving path launched no {name} kernel")
 
     print(f"[smoke] phase walls (s): {walls}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,0 +1,5 @@
+from repro_torch.kernels.wkv6.kernel import wkv6
+from repro_torch.kernels.wkv6.ops import wkv6_decode_step, wkv6_op
+from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+__all__ = ["wkv6", "wkv6_decode_step", "wkv6_op", "wkv6_ref"]

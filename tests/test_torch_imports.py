@@ -51,6 +51,19 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.problems.max_clique",
         "repro_torch.problems.mis",
         "repro_torch.api.cache",
+        "repro_torch.configs.registry",
+        "repro_torch.configs.qwen1_5_0_5b",
+        "repro_torch.configs.rwkv6_3b",
+        "repro_torch.kernels.flash_attention.kernel",
+        "repro_torch.kernels.flash_attention.ops",
+        "repro_torch.kernels.wkv6.kernel",
+        "repro_torch.kernels.wkv6.ops",
+        "repro_torch.models.layers",
+        "repro_torch.models.transformer",
+        "repro_torch.models.rwkv6",
+        "repro_torch.models.registry",
+        "repro_torch.models.convert",
+        "repro_torch.launch.serve_lm",
     ):
         assert name in report["modules"]
 
