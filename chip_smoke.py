@@ -9,7 +9,8 @@ Phases (any failed check raises, so the exit code is not 0):
 
 1. card and build — the card's name and power limit from nvidia-smi; every
    CUDA kernel of the port built from the sources in the checkout, one nvcc
-   per source, all started together;
+   per source, all started together; the tensor-core attention kernel's
+   SASS holds wgmma (HGMMA) instructions;
 2. kernels vs plain — ``batched_degrees`` and ``batched_expand_stats``
    against their plain PyTorch versions on the card, exactly, over n in
    {1, 31, 33, 300, 600, 2048}, T in {1, 2, 7, 128, 1024}, random, empty,
@@ -36,12 +37,14 @@ Phases (any failed check raises, so the exit code is not 0):
    workers, a bounded anytime solve (``--paper-max-rounds``, 8 supersteps),
    run twice;
 8. LM kernels vs plain — ``flash_attention`` against its plain version and
-   the f32 oracle on the JAX package's attention cases in f32 and bf16, and
-   at the serving shapes (qwen1.5-0.5b's prefill, starcoder2-3b's GQA
-   widths, a window, one query against 1,057 keys); ``wkv6`` against
-   ``wkv6_ref`` on the JAX package's cases with and without a state and at
-   RWKV6-3B's prefill; then both timed with CUDA events at the serving
-   shapes, beside their plain versions (and attention beside
+   the f32 oracle on the JAX package's attention cases in f32 and bf16 (the
+   dispatch rule sends bf16 with D % 16 == 0 to the tensor-core variant,
+   the rest to the CUDA-core one), and at the serving shapes (qwen1.5-0.5b's
+   prefill, starcoder2-3b's GQA widths, a window, one query against 1,057
+   keys; in bf16 both variants); ``wkv6`` against ``wkv6_ref`` on the JAX
+   package's cases with and without a state and at RWKV6-3B's prefill; then
+   both timed at the serving shapes, both attention variants in the same
+   call, beside their plain versions (and attention beside
    ``scaled_dot_product_attention``, which the port never calls);
 9. the LM golden — ``src/repro_torch/data/golden_lm.json``, made by the JAX
    package for the qwen1.5, starcoder2 and rwkv6 smoke configs in f32:
@@ -57,9 +60,12 @@ Phases (any failed check raises, so the exit code is not 0):
    halves.
 
 Kernel launch counts are zeroed just before each path runs and read just
-after it.  The last three lines of standard output are the kernels JSON line,
-the nvidia-smi line and ``{"ok": true, "device": {...}}``.  The script imports
-nothing of JAX and nothing of the JAX package ``repro``.
+after it; ``flash_attention`` counts each variant on its own.  Times
+(``repro_torch.launch.timing``): ``ms`` is the device time of one call from
+back-to-back calls (``time_ms``), ``call_ms`` the single synchronised call
+of earlier runs.  The last three lines of standard output are the kernels
+JSON line, the nvidia-smi line and ``{"ok": true, "device": {...}}``.  The
+script imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 
 from __future__ import annotations
@@ -67,7 +73,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -112,24 +117,6 @@ def words_on(words, device):
 
     arr = np.ascontiguousarray(np.asarray(words, np.uint32)).view(np.int32)
     return torch.from_numpy(arr.copy()).to(device)
-
-
-def time_ms(fn, reps: int = 50, warmup: int = 10) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _instances(n: int, B: int, seed: int):
@@ -190,6 +177,7 @@ def phase_kernels(dev):
         batched_expand_stats,
         expand_stats_ref,
     )
+    from repro_torch.launch.timing import call_ms, time_ms
 
     err = {"batched_degrees": 0, "batched_expand_stats": 0}
     checked = {"batched_degrees": 0, "batched_expand_stats": 0}
@@ -242,13 +230,16 @@ def phase_kernels(dev):
     rng = np.random.default_rng(0)
     adj = words_on(erdos_renyi(**PAPER_GRAPH).adj, dev)
     m = words_on(rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & mask_full(n), dev)
-    kernel_ms = time_ms(lambda: batched_degrees(adj, m))
-    plain_ms = time_ms(lambda: batched_degrees_ref(adj, m))
+    kernel = lambda: batched_degrees(adj, m)
+    plain = lambda: batched_degrees_ref(adj, m)
+    kernel_ms, kernel_call = time_ms(kernel), call_ms(kernel)
+    plain_ms, plain_call = time_ms(plain), call_ms(plain)
     moved = 4 * (n * W + T * W + T * n)  # adj and masks read once, out written once
     ops = 3 * T * n * W  # AND, popcount, add per (task, vertex, word)
     bound, by = _bound_ms(moved, ops)
-    print(f"[smoke] batched_degrees T={T} n={n} W={W}: kernel {kernel_ms:.6f} ms, "
-          f"plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({moved} B, {ops} ops)")
+    print(f"[smoke] batched_degrees T={T} n={n} W={W}: kernel {kernel_ms:.6f} ms "
+          f"(one call {kernel_call:.6f}), plain {plain_ms:.6f} ms (one call "
+          f"{plain_call:.6f}), bound {bound:.6f} ms ({moved} B, {ops} ops)")
     out["batched_degrees"] = {
         "name": "batched_degrees",
         "route": "cuda",
@@ -257,7 +248,9 @@ def phase_kernels(dev):
         "exact": err["batched_degrees"] == 0,
         "max_abs_err": err["batched_degrees"],
         "ms": kernel_ms,
+        "call_ms": kernel_call,
         "plain_ms": plain_ms,
+        "plain_call_ms": plain_call,
         "bound_ms": bound,
         "bound_by": by,
         # torch has no popcount, so no single PyTorch call computes this
@@ -273,15 +266,17 @@ def phase_kernels(dev):
         masks = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & mask_full(n)
         sols = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & mask_full(n) & ~masks
         m, s_ = words_on(masks, dev), words_on(sols, dev)
-        kernel_ms = time_ms(lambda: batched_expand_stats(adj, m, s_))
-        plain_ms = time_ms(lambda: expand_stats_ref(adj, m, s_))
+        kernel = lambda: batched_expand_stats(adj, m, s_)
+        plain = lambda: expand_stats_ref(adj, m, s_)
+        kernel_ms, kernel_call = time_ms(kernel), call_ms(kernel)
+        plain_ms, plain_call = time_ms(plain), call_ms(plain)
         # adj, masks and sols read once; deg and pc written once
         moved = 4 * (n * W + 2 * T * W + T * n + 2 * T)
         ops = 3 * T * n * W + 4 * T * W  # + popcount and add per mask and sol word
         bound, by = _bound_ms(moved, ops)
         print(f"[smoke] batched_expand_stats ({label}) T={T} n={n} W={W}: kernel "
-              f"{kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
-              f"({moved} B, {ops} ops)")
+              f"{kernel_ms:.6f} ms (one call {kernel_call:.6f}), plain {plain_ms:.6f} ms "
+              f"(one call {plain_call:.6f}), bound {bound:.6f} ms ({moved} B, {ops} ops)")
         if label == "max_clique":
             out["batched_expand_stats"] = {
                 "name": "batched_expand_stats",
@@ -291,7 +286,9 @@ def phase_kernels(dev):
                 "exact": err["batched_expand_stats"] == 0,
                 "max_abs_err": err["batched_expand_stats"],
                 "ms": kernel_ms,
+                "call_ms": kernel_call,
                 "plain_ms": plain_ms,
+                "plain_call_ms": plain_call,
                 "bound_ms": bound,
                 "bound_by": by,
                 "library_ms": None,  # no single PyTorch call computes a popcount panel
@@ -535,6 +532,7 @@ ATTN_CASES = [
     dict(B=3, Sq=33, Sk=33, Hq=6, Hkv=3, D=8, causal=True, window=16),
 ]
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+VARIANT_SOURCES = {"tensor_core": "flash_attention_wgmma.cu", "cuda_core": "flash_attention.cu"}
 # the serving shapes: qwen1.5-0.5b's prefill (B 4, S 1024, 16 heads of 64),
 # starcoder2-3b's GQA widths, a window, one query against a 1,057-key cache
 QWEN_ATTN = dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=None)
@@ -625,6 +623,8 @@ def _attn_work(c, dtype_bytes: int):
 def phase_lm_kernels(dev) -> dict:
     """flash_attention and wkv6 against their plain versions, then timed.
     Returns their fields of the kernels line (launches aside), by name."""
+    import collections
+
     import torch
     import torch.nn.functional as F
 
@@ -634,51 +634,57 @@ def phase_lm_kernels(dev) -> dict:
         flash_attention,
         flash_attention_plain,
     )
+    from repro_torch.kernels.flash_attention.kernel import VARIANTS, variant_for
     from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+    from repro_torch.launch.timing import call_ms, time_ms
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     attn_err = {"float32": 0.0, "bfloat16": 0.0}
-    n_attn = 0
+    calls = collections.Counter()  # launches the calls below must make, by variant
     counts.reset()
     for i, c in enumerate(ATTN_CASES):
         kw = dict(causal=c["causal"], window=c["window"])
         for name, dt in dtypes.items():
             q, k, v = _attn_inputs(c, dt, dev, i)
             got = flash_attention(q, k, v, **kw).float()
+            calls[f"flash_attention.{variant_for(q, k, v)}"] += 1
             torch.cuda.synchronize()
             for want in (flash_attention_plain(q, k, v, **kw).float(),
                          attention_ref(q.float(), k.float(), v.float(), **kw)):
                 e = float((got - want).abs().max())
                 attn_err[name] = max(attn_err[name], e)
                 check(e < ATTN_TOL[name], f"flash_attention {name} {c}: max abs err {e}")
-            n_attn += 1
     serving_err = {}
     for i, c in enumerate(SERVING_ATTN):
         kw = dict(causal=c["causal"], window=c["window"])
         for name, dt in dtypes.items():
             q, k, v = _attn_inputs(c, dt, dev, 100 + i)
-            got = flash_attention(q, k, v, **kw).float()
             want = flash_attention_plain(q, k, v, **kw).float()
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            e = float(diff.max())
-            if name == "float32":
-                check(e < ATTN_TOL[name], f"flash_attention f32 at {c}: max abs err {e}")
-            else:
-                # both sides hold f32 and round once to bf16: they may differ
-                # by one bf16 step, at most 2^-7 of the larger value
-                step = 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6
-                check(bool((diff <= step).all()),
-                      f"flash_attention bf16 at {c}: more than one bf16 step from "
-                      f"the plain version (max abs err {e})")
-            serving_err[f"{c['Hq']}/{c['Hkv']}x{c['D']} Sq={c['Sq']} "
-                        f"w={c['window']} {name}"] = e
-            n_attn += 1
-    check(counts.snapshot() == {"flash_attention": n_attn},
-          f"flash_attention launches {counts.snapshot()} != {n_attn} calls")
+            # f32 has one variant; bf16 at these shapes both, the tensor-core
+            # one by the rule
+            for variant in (("auto",) if name == "float32" else VARIANTS):
+                got = flash_attention(q, k, v, **kw, variant=variant).float()
+                calls[f"flash_attention.{variant_for(q, k, v) if variant == 'auto' else variant}"] += 1
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                e = float(diff.max())
+                if name == "float32":
+                    check(e < ATTN_TOL[name], f"flash_attention f32 at {c}: max abs err {e}")
+                else:
+                    # both sides hold f32 and round once to bf16: they may differ
+                    # by one bf16 step, at most 2^-7 of the larger value
+                    step = 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6
+                    check(bool((diff <= step).all()),
+                          f"flash_attention {variant} bf16 at {c}: more than one bf16 step "
+                          f"from the plain version (max abs err {e})")
+                serving_err[f"{c['Hq']}/{c['Hkv']}x{c['D']} Sq={c['Sq']} "
+                            f"w={c['window']} {name} {variant}"] = e
+    check(counts.snapshot() == dict(calls),
+          f"flash_attention launches {counts.snapshot()} != the calls' variants {dict(calls)}")
     print(f"[smoke] flash_attention == plain version and f32 oracle on "
           f"{len(ATTN_CASES)} JAX cases x 2 dtypes (max abs err {attn_err}); at the "
-          f"serving shapes (bf16 within one bf16 step): {serving_err}")
+          f"serving shapes (bf16 within one bf16 step): {serving_err}; launches by "
+          f"variant {dict(calls)}")
 
     wkv_err = 0.0
     for i, (B, T, H, K, V) in enumerate(WKV_CASES + [RWKV_WKV]):
@@ -695,52 +701,71 @@ def phase_lm_kernels(dev) -> dict:
           f"{wkv_err:.3g} < {WKV_TOL})")
 
     out = {}
-    # attention at qwen1.5-0.5b's prefill shape, bf16
+    # attention at qwen1.5-0.5b's prefill shape, bf16: both variants, the
+    # plain version and SDPA in the same call
     c = QWEN_ATTN
     q, k, v = _attn_inputs(c, torch.bfloat16, dev, 300)
-    kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+    variants = {}
+    for variant in VARIANTS:
+        fn = lambda: flash_attention(q, k, v, causal=True, variant=variant)
+        variants[variant] = {
+            "source": f"src/repro_torch/kernels/flash_attention/csrc/{VARIANT_SOURCES[variant]}",
+            "ms": time_ms(fn),
+            "call_ms": call_ms(fn),
+        }
+    plain = lambda: flash_attention_plain(q, k, v, causal=True)
+    plain_ms, plain_call = time_ms(plain, n=20), call_ms(plain, reps=20)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
     mine = flash_attention(q, k, v, causal=True)
     e = float((sdpa.float() - mine.float()).abs().max())
     check(e < ATTN_TOL["bfloat16"], f"scaled_dot_product_attention disagrees: {e}")
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library_ms, library_call = time_ms(library), call_ms(library)
     moved, flops = _attn_work(c, 2)
     bound, by = _bound_ms(moved, 0)
     bound_ops = flops / PEAK_BF16_FLOPS * 1e3
     if bound_ops > bound:
         bound, by = bound_ops, "operations"
-    print(f"[smoke] flash_attention {c} bf16: kernel {kernel_ms:.6f} ms, plain "
-          f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms "
-          f"(agrees within {e:.3g}), bound {bound:.6f} ms ({moved} B, {flops} FLOP)")
+    tc, cc = variants["tensor_core"], variants["cuda_core"]
+    print(f"[smoke] flash_attention {c} bf16: tensor_core {tc['ms']:.6f} ms (one call "
+          f"{tc['call_ms']:.6f}), cuda_core {cc['ms']:.6f} ms (one call "
+          f"{cc['call_ms']:.6f}), plain {plain_ms:.6f} ms (one call {plain_call:.6f}), "
+          f"scaled_dot_product_attention {library_ms:.6f} ms (one call {library_call:.6f}; "
+          f"agrees within {e:.3g}), bound {bound:.6f} ms ({moved} B, {flops} FLOP)")
     out["flash_attention"] = {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": tc["source"],
         "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
         "max_abs_err": max(attn_err.values()),
-        "ms": kernel_ms,
+        "ms": tc["ms"],
+        "call_ms": tc["call_ms"],
         "plain_ms": plain_ms,
+        "plain_call_ms": plain_call,
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": library_ms,
+        "library_call_ms": library_call,
+        "variants": variants,
     }
 
     # wkv6 at RWKV6-3B's prefill, f32, no initial state (the forward's call)
     B, T, H, K, V = RWKV_WKV
     r, k, v, d, u, _ = _wkv_inputs(B, T, H, K, V, dev, 400, with_state=False)
-    kernel_ms = time_ms(lambda: wkv6(r, k, v, d, u))
-    plain_ms = time_ms(lambda: wkv6_ref(r, k, v, d, u), reps=5, warmup=1)
+    kernel = lambda: wkv6(r, k, v, d, u)
+    plain = lambda: wkv6_ref(r, k, v, d, u)
+    kernel_ms, kernel_call = time_ms(kernel), call_ms(kernel)
+    plain_ms, plain_call = time_ms(plain, n=20, runs=3, warmup=1), call_ms(plain, reps=5, warmup=1)
     # r, k, v, decay, u read once; out and the final state written once; per
     # (b, t, h, k, v) a multiply for k v and two fused multiply-adds (the
     # state's decay-and-add, the output's r-weighted sum): 5 FLOP
     moved = 4 * (4 * B * T * H * K + H * K + B * T * H * V + B * H * K * V)
     ops = 5 * B * T * H * K * V
     bound, by = _bound_ms(moved, ops)
-    print(f"[smoke] wkv6 (B, T, H, K, V)={RWKV_WKV} f32: kernel {kernel_ms:.6f} ms, "
-          f"plain {plain_ms:.6f} ms (median of 5), bound {bound:.6f} ms "
-          f"({moved} B, {ops} FLOP)")
+    print(f"[smoke] wkv6 (B, T, H, K, V)={RWKV_WKV} f32: kernel {kernel_ms:.6f} ms (one call "
+          f"{kernel_call:.6f}), plain {plain_ms:.6f} ms (one call {plain_call:.6f}), bound "
+          f"{bound:.6f} ms ({moved} B, {ops} FLOP)")
     out["wkv6"] = {
         "name": "wkv6",
         "route": "cuda",
@@ -748,7 +773,9 @@ def phase_lm_kernels(dev) -> dict:
         "replaces": "src/repro/kernels/wkv6/kernel.py:92",
         "max_abs_err": wkv_err,
         "ms": kernel_ms,
+        "call_ms": kernel_call,
         "plain_ms": plain_ms,
+        "plain_call_ms": plain_call,
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": None,  # no single PyTorch call computes the recurrence
@@ -779,7 +806,8 @@ def phase_golden_lm(dev) -> None:
         logits = model.forward(params, {"tokens": toks})
         torch.cuda.synchronize()
         launches = counts.snapshot()
-        kernel = "wkv6" if cfg.family == "ssm" else "flash_attention"
+        # f32: attention runs on the CUDA-core variant
+        kernel = "wkv6" if cfg.family == "ssm" else "flash_attention.cuda_core"
         check(launches == {kernel: cfg.n_layers},
               f"golden {arch}: launches {launches}, want {cfg.n_layers} {kernel}")
         want = torch.tensor(run["result"]["last_logits"], device=dev)
@@ -900,7 +928,8 @@ def _f32_copy(cfg, params, dev):
 
 def phase_serve_lm(dev) -> dict:
     """qwen1.5-0.5b and rwkv6-3b at full width, bf16: prefill and greedy
-    decode, then the checks.  Returns the serving runs' launch counts."""
+    decode, then the checks.  Returns the serving runs' launch counts, by
+    counter."""
     import numpy as np
     import torch
 
@@ -919,7 +948,8 @@ def phase_serve_lm(dev) -> dict:
         n_params = sum(p.numel() for p in params.parameters())
         toks = torch.from_numpy(
             np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (B, P))).to(dev)
-        kernel = "wkv6" if cfg.family == "ssm" else "flash_attention"
+        # bf16 at D 64: attention runs on the tensor-core variant
+        kernel = "wkv6" if cfg.family == "ssm" else "flash_attention.tensor_core"
         model.forward(params, {"tokens": toks})  # warm-up: cuBLAS and kernel loads
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
@@ -935,7 +965,7 @@ def phase_serve_lm(dev) -> dict:
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         launches = counts.snapshot()
-        main_launches[kernel] = launches.get(kernel, 0)
+        main_launches.update(launches)
         check(launches == {kernel: cfg.n_layers},
               f"{arch}: launches {launches}, want {cfg.n_layers} {kernel} (one per "
               f"layer of the prefill; decode attends/steps in plain torch)")
@@ -1033,6 +1063,14 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[smoke]   {name}: {line.strip()}")
+    # the tensor-core attention kernel must hold wgmma (HGMMA in SASS)
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass", str(build.library_path("flash_attention_wgmma"))],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    n_wgmma = sum("HGMMA" in line for line in sass.splitlines())
+    check(n_wgmma > 0, "flash_attention_wgmma's SASS holds no HGMMA (wgmma) instruction")
+    print(f"[smoke] flash_attention_wgmma: {n_wgmma} HGMMA (wgmma) instructions in its sm_90a SASS")
 
     walls = {}
 
@@ -1059,9 +1097,14 @@ def main() -> None:
     kernels.update(timed("lm_kernels", phase_lm_kernels, dev))
     timed("golden_lm", phase_golden_lm, dev)
     serving = timed("serve_lm", phase_serve_lm, dev)
-    for name in ("flash_attention", "wkv6"):
-        kernels[name]["launches"] = serving.get(name, 0)
-        check(kernels[name]["launches"] > 0, f"the serving path launched no {name} kernel")
+    attn = kernels["flash_attention"]
+    for variant, fields in attn["variants"].items():
+        fields["launches"] = serving.get(f"flash_attention.{variant}", 0)
+    attn["launches"] = sum(f["launches"] for f in attn["variants"].values())
+    check(attn["variants"]["tensor_core"]["launches"] > 0,
+          "the serving path launched no tensor-core flash_attention kernel")
+    kernels["wkv6"]["launches"] = serving.get("wkv6", 0)
+    check(kernels["wkv6"]["launches"] > 0, "the serving path launched no wkv6 kernel")
 
     print(f"[smoke] phase walls (s): {walls}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

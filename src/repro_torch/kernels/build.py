@@ -3,8 +3,9 @@
 Each source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface.  Libraries go
 to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
-digest of their source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing is built at import time: the
+digest of every source under the library's ``csrc/`` directory (``.cu`` and
+``.cuh``) and of nvcc's flags, so an edited source or header is rebuilt and
+an unchanged library is loaded as it is.  Nothing is built at import time: the
 first CUDA launch (or ``build_all``) builds what is missing, with one
 ``nvcc`` process per source, all started together.
 
@@ -23,11 +24,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent  # src/repro_torch/kernels
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 
-# library name -> CUDA source
+# library name -> the CUDA source nvcc compiles
 SOURCES = {
     "bitset_ops": _PKG / "bitset_ops" / "csrc" / "degrees.cu",
     "expand_stats": _PKG / "bitset_ops" / "csrc" / "expand_stats.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_wgmma": _PKG / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
     "wkv6": _PKG / "wkv6" / "csrc" / "wkv6.cu",
 }
 
@@ -42,23 +44,30 @@ BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """The path of the CUDA toolkit's program ``name`` (nvcc, cuobjdump)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError(
-            "cannot build the CUDA kernels: no CUDA toolkit found "
-            "(set CUDA_HOME or put nvcc on PATH)"
+            f"cannot run {name}: no CUDA toolkit found (set CUDA_HOME or put nvcc on PATH)"
         )
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
+
+
+def digest_inputs(name: str) -> list[Path]:
+    """The files a library's digest covers: every ``.cu`` and ``.cuh`` under
+    its source's directory, which its source may include."""
+    csrc = SOURCES[name].parent
+    return sorted(p for p in csrc.rglob("*") if p.suffix in (".cu", ".cuh"))
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, SOURCES[name].name)).encode())
+    for path in digest_inputs(name):
+        h.update(f"\0{path.relative_to(SOURCES[name].parent)}\0".encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:
@@ -75,7 +84,7 @@ def build_all(names=None) -> dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )

@@ -26,9 +26,12 @@
 //
 // What bounds it.  At the prefill shape (B 4, S 1024, 16 heads of 64, causal,
 // bf16) it moves 34 MB and does 8.6 GFLOP: 0.010 ms at 3.35 TB/s, 0.009 ms on
-// the bf16 tensor cores.  This first kernel does the products in f32 on the
-// CUDA cores out of shared memory (67 TFLOP/s peak: 0.13 ms), so it is bound
-// by operations and shared-memory traffic; wgmma and TMA are later work.
+// the bf16 tensor cores.  This kernel does the products in f32 on the CUDA
+// cores out of shared memory (67 TFLOP/s peak: 0.13 ms), so it is bound by
+// operations and shared-memory traffic.  It serves every f32 call (whose
+// 1e-5 tolerance TF32 products would break) and the bf16 shapes the
+// tensor-core variant, flash_attention_wgmma.cu, does not take (the
+// wrapper's select_variant).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

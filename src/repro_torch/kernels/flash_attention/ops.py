@@ -7,8 +7,9 @@ same semantics:
 * ``blockwise_attention`` -- online softmax as a loop over KV blocks in
   plain torch, with the JAX path's rounding points (scores in q's dtype,
   accumulators in f32).
-* ``flash_attention``     -- the hand-written CUDA kernel on a CUDA tensor,
-  its plain version on a CPU tensor.
+* ``flash_attention``     -- the hand-written CUDA kernels on a CUDA tensor
+  (bf16 on the tensor cores where ``select_variant`` allows, else on the
+  CUDA cores), their plain version on a CPU tensor.
 
 ``attention_op`` defaults to the kernel, where the JAX package defaults to
 ``"blockwise"``: on the TPU no entry point ever selected ``"pallas"``, so

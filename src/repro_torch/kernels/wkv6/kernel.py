@@ -3,17 +3,21 @@
 It replaces the Pallas TPU kernel ``repro/kernels/wkv6/kernel.py:92``
 (``wkv6``, body ``_wkv6_kernel`` at :31).  The source is ``csrc/wkv6.cu``,
 built with nvcc for ``sm_90a`` on first use (:mod:`repro_torch.kernels.build`)
-and called through ``ctypes``.  The kernel runs the recurrence of
-``ref.py`` in time order, one block per (batch, head) and one thread per
-value column holding its column of the f32 state in registers; the TPU's
-chunked reformulation, which exists to feed the MXU, is not carried over.
+and called through ``ctypes``.  The kernel runs the recurrence of ``ref.py``
+in time order, split over blocks of 16 value columns (the columns of one
+(batch, head) are independent given r, k and decay) and, inside a block,
+over 16 slices of 4 keys: a thread keeps a 4 x 4 register tile of the f32
+state, reads r, k and decay as float4 broadcasts from a double-buffered
+shared-memory stage, and o's partial sums over the slices meet in shared
+memory once a chunk.  The TPU's chunked reformulation, which exists to feed
+the MXU and overflows f32 in its factored form at decays near 1e-30, is not
+carried over.
 
 What bounds it on an H100: at RWKV6-3B's prefill (B 4, T 1024, 40 heads,
 K = V = 64, f32) the call moves 213 MB (0.064 ms at 3.35 TB/s) and does
-4 GFLOP (0.06 ms at the 67 TFLOP/s f32 rate): bound by bytes.  The time
-order makes each block a chain of T dependent steps, and B * H = 160
-blocks of 64 threads leave most of the card idle, so this first kernel is
-bound by the latency of that chain.
+671 M state updates at 3 instructions each (~0.07 ms of f32 issue): bytes
+and issue alike; the time order leaves each thread a chain of T dependent
+fused multiply-adds.
 
 Decays are clipped to [1e-30, 1] as the TPU kernel does
 (``log(clip(decay, 1e-30, 1))``, kernel.py:113); multiplying by the clipped

@@ -12,6 +12,9 @@ Prints:
 * wall time, device busy time (the union of kernel, copy and memset
   intervals in the trace) and the device's idle share;
 * device time and launch count by kernel name, largest first;
+* the hand-written kernels' device time per launch, from the trace (their
+  µs-scale bodies are far below the host time of a call, which a CUDA
+  event pair around one call measures instead);
 * the median device time of one panel at the plane's batch shape, from CUDA
   events (vertex cover: also one reduction sweep);
 * the solve's reduction sweeps and kernel launches.
@@ -40,6 +43,8 @@ from repro_torch.problems.base import degrees_batch, expand_stats_batch, make_da
 from repro_torch.problems.registry import get_problem
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the hand-written kernels' names in a trace (kernels/*/csrc/*.cu)
+PORT_KERNELS = ("batched_degrees_kernel", "batched_expand_stats_kernel")
 
 
 def _median_ms(fn, reps: int = 30) -> float:
@@ -139,6 +144,12 @@ def main(argv=None) -> None:
     print("[profile] device time by kernel (ms, share, count):")
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"[profile]   {ms:10.3f}  {ms / total_ms:6.3f}  {cnt:8d}  {name[:110]}")
+    for kernel in PORT_KERNELS:
+        hits = [v for name, v in by_name.items() if kernel in name]
+        if hits:
+            ms, cnt = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            print(f"[profile] {kernel}: {ms:.3f} ms of device time over {cnt} launches, "
+                  f"{1e3 * ms / cnt:.3f} µs a launch")
 
     # one panel (and for vertex cover one reduction sweep) at the plane's
     # batch shape

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA ``batched_degrees`` and
 ``batched_expand_stats`` kernels against their plain versions (one instance
 and a padded batch with a task-row map), the goldens through
-``SolverSession(device="cuda")``, the CUDA ``flash_attention`` and ``wkv6``
-kernels against their plain versions, and the LM serving path through them.
+``SolverSession(device="cuda")``, the CUDA ``flash_attention`` (both
+variants: tensor cores and CUDA cores) and ``wkv6`` kernels against their
+plain versions, and the LM serving path through them.
 
 These tests need an NVIDIA GPU and skip elsewhere.  On a machine with one:
 
@@ -28,6 +29,7 @@ from repro_torch.kernels.bitset_ops import (
     expand_stats_ref,
 )
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention.kernel import variant_for
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 from repro_torch.launch.serve_lm import greedy_decode
 from repro_torch.models.convert import load_jax_params, numpy_params
@@ -141,7 +143,7 @@ def test_flash_attention_kernel_equals_plain_version(cuda, case, dtype, tol):
     counts.reset()
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert counts.snapshot() == {"flash_attention": 1}
+    assert counts.snapshot() == {f"flash_attention.{variant_for(q, k, v)}": 1}
     assert got.dtype == dtype and got.shape == q.shape
     plain = flash_attention_plain(q, k, v, **kw)
     ref = attention_ref(q.float(), k.float(), v.float(), **kw)
@@ -170,12 +172,92 @@ def test_wkv6_kernel_equals_plain_version(cuda, B, T, H, K, V, with_state):
     assert (s - s_ref).abs().max() < 3e-4
 
 
+# the tensor-core variant's shapes: the serving shapes of chip_smoke.py
+# (qwen1.5-0.5b's prefill, starcoder2-3b's GQA widths, a window, one query
+# against 1,057 keys) and ragged query counts, D 64 and 128
+TC_CASES = [
+    dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=None),
+    dict(B=4, Sq=1024, Sk=1024, Hq=24, Hkv=2, D=128, causal=True, window=None),
+    dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=256),
+    dict(B=4, Sq=1, Sk=1057, Hq=16, Hkv=16, D=64, causal=True, window=None),
+] + [
+    dict(B=2, Sq=sq, Sk=sk, Hq=hq, Hkv=hkv, D=d, causal=True, window=w)
+    for sq, sk in ((1, 1), (33, 33), (70, 70), (33, 130))
+    for hq, hkv, d, w in ((4, 1, 64, None), (6, 2, 128, 24))
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_attention_within_one_bf16_step(cuda, case):
+    """Every output element within one bf16 step of the plain version (both
+    round once to bf16 from f32), as chip_smoke.py's serving check."""
+    c = case
+    g = torch.Generator(device="cpu").manual_seed(c["Sq"] * 7 + c["D"])
+    q, k, v = (torch.randn(s, generator=g).to(cuda, torch.bfloat16) for s in (
+        (c["B"], c["Sq"], c["Hq"], c["D"]), (c["B"], c["Sk"], c["Hkv"], c["D"]),
+        (c["B"], c["Sk"], c["Hkv"], c["D"])))
+    kw = dict(causal=c["causal"], window=c["window"])
+    assert variant_for(q, k, v) == "tensor_core"
+    counts.reset()
+    got = flash_attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert counts.snapshot() == {"flash_attention.tensor_core": 1}
+    want = flash_attention_plain(q, k, v, **kw).float()
+    step = 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6
+    assert bool(((got - want).abs() <= step).all())
+    # the CUDA-core variant on the same inputs, asked for by name
+    other = flash_attention(q, k, v, **kw, variant="cuda_core").float()
+    assert counts.snapshot() == {"flash_attention.tensor_core": 1, "flash_attention.cuda_core": 1}
+    assert (other - want).abs().max() < 2e-2
+
+
+def test_tensor_core_attention_reads_strided_views(cuda):
+    """A (B, H, S, D) tensor viewed as (B, S, H, D): the 4-D tensor map takes
+    its strides as they are."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn(2, h, 70, 64, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
+               for h in (4, 2, 2))
+    assert variant_for(q, k, v) == "tensor_core" and not q.is_contiguous()
+    got = flash_attention(q, k, v).float()
+    want = flash_attention_plain(q, k, v).float()
+    step = 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6
+    assert bool(((got - want).abs() <= step).all())
+
+
+@pytest.mark.parametrize("V", [24, 48, 64])
+@pytest.mark.parametrize("K", [8, 64])
+@pytest.mark.parametrize("T", [1, 50, 1024])
+@pytest.mark.parametrize("with_state", [True, False])
+def test_wkv6_value_tiles_and_k_slices(cuda, V, K, T, with_state):
+    """The split kernel at value widths that are not a multiple of its
+    16-column tiles, K below its 16 slices of 4, and T ragged, 1 and long."""
+    B, H = 2, 3
+    g = torch.Generator(device="cpu").manual_seed(V * 1000 + K * 10 + T)
+    f = lambda *s: (torch.randn(s, generator=g) * 0.5).to(cuda)
+    r, k, v = f(B, T, H, K), f(B, T, H, K), f(B, T, H, V)
+    decay = torch.exp(-torch.exp(-torch.empty(B, T, H, K).uniform_(0.2, 3.0, generator=g))).to(cuda)
+    u = f(H, K) * 0.6
+    s0 = f(B, H, K, V) * 0.4 if with_state else None
+    counts.reset()
+    o, s = wkv6(r, k, v, decay, u, s0)
+    torch.cuda.synchronize()
+    assert counts.snapshot() == {"wkv6": 1}
+    o_ref, s_ref = wkv6_ref(r, k, v, decay, u, s0)
+    assert (o - o_ref).abs().max() < 3e-4
+    assert (s - s_ref).abs().max() < 3e-4
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 2, 160, device=cuda)
     with pytest.raises(ValueError, match="head size"):
         flash_attention(q, q, q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q[..., :8].half(), q[..., :8].half(), q[..., :8].half())
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        flash_attention(q[..., :64], q[..., :64], q[..., :64], variant="tensor_core")  # f32
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        b8 = q[..., :8].to(torch.bfloat16)
+        flash_attention(b8, b8, b8, variant="tensor_core")  # D = 8
     r = torch.zeros(1, 4, 2, 8, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         wkv6(r.double(), r.double(), r.double(), r.double(), r[0, 0].double())
@@ -198,7 +280,8 @@ def test_lm_smoke_on_card_equals_cpu(cuda, arch):
     counts.reset()
     got = model.forward(on_card, {"tokens": toks.to(cuda)})
     torch.cuda.synchronize()
-    kernel = "wkv6" if cfg.family == "ssm" else "flash_attention"
+    # f32: attention runs on the CUDA-core variant
+    kernel = "wkv6" if cfg.family == "ssm" else "flash_attention.cuda_core"
     assert counts.snapshot() == {kernel: cfg.n_layers}
     want = model.forward(on_cpu, {"tokens": toks})
     assert (got.cpu() - want).abs().max() < 1e-4
