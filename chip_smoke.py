@@ -15,8 +15,18 @@ Phases (any failed check raises, so the exit code is not 0):
    against their plain PyTorch versions on the card, exactly, over n in
    {1, 31, 33, 300, 600, 2048}, T in {1, 2, 7, 128, 1024}, random, empty,
    full and single-bit masks (and random, empty and full sols), for one
-   instance and for a padded batch of 3 with a task-row map; then both
-   timed with CUDA events at the solve plane's shapes;
+   instance and for a padded batch of 3 with a task-row map; the fused
+   ``vc_expand`` (reduction loop included, trip counts too) and
+   ``clique_expand`` against theirs the same way over n in {1, 31, 33,
+   300, 600, 1300, 2048} (adjacency staged in shared memory up to 1300,
+   read from L2 at 2048; ``vc_expand`` at T = 1024 only where n <= 600,
+   where its plain version is quick); then all four timed with CUDA events
+   at the solve plane's shapes, each bound counting the operations of this
+   run's masks; then the composed expansion (each problem with
+   ``expand_tasks=None``, the plane's fallback), which runs the two panel
+   kernels: the vertex-cover goldens and ``clique_smoke`` reproduce through
+   it, and its launches are the panel kernels' launches of the kernels
+   line;
 3. exact vertex-cover solves — ``SolverSession(device="cuda").solve``
    reproduces every solo and fpt golden of ``tests/golden_vc.json`` and the
    n = 300 golden ``src/repro_torch/data/golden_smoke.json``, all made by the
@@ -24,18 +34,21 @@ Phases (any failed check raises, so the exit code is not 0):
 4. max clique — the second path: an exact solve of ``p_hat_like(300,
    0.325, seed 0)`` (density 0.2456, the size class of DIMACS p_hat300-1)
    with 128 workers, equal to the JAX golden of
-   ``src/repro_torch/data/golden_clique.json``; one ``batched_expand_stats``
-   launch per explore round;
+   ``src/repro_torch/data/golden_clique.json``; one ``clique_expand``
+   launch per explore round and no ``batched_expand_stats``;
 5. MIS — the paper's graph G(600, 4/599, seed 0) branched on its dense
    complement (W = 19), 128 workers, 64 supersteps, equal to its JAX golden;
 6. the batched plane — ``solve_many`` of vertex cover on G(300, 4/299,
    seeds 0 and 1), 64 workers: instance 0 equals the n = 300 golden,
-   instance 1 its own solo solve, one kernel launch per degree panel for the
-   whole batch; a batch of two copies of seed 0 launches exactly what one
-   solo solve does; and ``clique_smoke``'s configuration gives [4, 6, 4, 4];
+   instance 1 its own solo solve, one ``vc_expand`` launch per explore
+   round for the whole batch and no ``batched_degrees``; a batch of two
+   copies of seed 0 launches exactly what one solo solve does and counts
+   the same reduction sweeps; and ``clique_smoke``'s configuration gives
+   [4, 6, 4, 4];
 7. paper size — the vertex-cover main path: G(600, 4/599, seed 0) with 128
-   workers, a bounded anytime solve (``--paper-max-rounds``, 8 supersteps),
-   run twice;
+   workers, a bounded anytime solve (``--paper-max-rounds`` supersteps),
+   run twice, one ``vc_expand`` launch per explore round; prints whether
+   the solve finished exact (its frontier empty before the cap);
 8. LM kernels vs plain — ``flash_attention`` against its plain version and
    the f32 oracle on the JAX package's attention cases in f32 and bf16 (the
    dispatch rule sends bf16 with D % 16 == 0 to the tensor-core variant,
@@ -87,9 +100,10 @@ PEAK_OPS_PER_S = 67e12
 
 PAPER_GRAPH = dict(n=600, p=4.0 / 599, seed=0)
 PAPER_WORKERS = 128
-# supersteps of each paper-size run: 16 took 86-90 s a run on an H100 at
-# 700 W, so it is cut to 8 to keep the whole smoke near 5 minutes
-PAPER_MAX_ROUNDS = 8
+# superstep cap of each paper-size run: the solve finished exact in 100
+# supersteps, 4.9-8.3 s a run, on an H100 at 700 W; the cap keeps a slower
+# host's two runs near a minute (a superstep took 0.05-0.11 s)
+PAPER_MAX_ROUNDS = 400
 CLIQUE_GRAPH = dict(n=300, density=0.325, seed=0)  # edge density 0.2456
 BATCH_GRAPH = dict(n=300, p=4.0 / 299)  # golden_smoke.json's family, seeds 0 and 1
 
@@ -160,6 +174,14 @@ def _bound_ms(moved: int, ops: int):
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _in_masks(masks) -> int:
+    """The vertices in a (T, W) batch of masks, summed over its rows: a
+    panel's degrees are only needed for those."""
+    from repro_torch.kernels.bitset_ops.ref import popcount_rows
+
+    return int(popcount_rows(masks).sum())
 
 
 def phase_kernels(dev):
@@ -235,7 +257,7 @@ def phase_kernels(dev):
     kernel_ms, kernel_call = time_ms(kernel), call_ms(kernel)
     plain_ms, plain_call = time_ms(plain), call_ms(plain)
     moved = 4 * (n * W + T * W + T * n)  # adj and masks read once, out written once
-    ops = 3 * T * n * W  # AND, popcount, add per (task, vertex, word)
+    ops = 3 * W * _in_masks(m)  # AND, popcount, add per (vertex in a mask, word)
     bound, by = _bound_ms(moved, ops)
     print(f"[smoke] batched_degrees T={T} n={n} W={W}: kernel {kernel_ms:.6f} ms "
           f"(one call {kernel_call:.6f}), plain {plain_ms:.6f} ms (one call "
@@ -272,7 +294,8 @@ def phase_kernels(dev):
         plain_ms, plain_call = time_ms(plain), call_ms(plain)
         # adj, masks and sols read once; deg and pc written once
         moved = 4 * (n * W + 2 * T * W + T * n + 2 * T)
-        ops = 3 * T * n * W + 4 * T * W  # + popcount and add per mask and sol word
+        # + popcount and add per mask and sol word
+        ops = 3 * W * _in_masks(m) + 4 * T * W
         bound, by = _bound_ms(moved, ops)
         print(f"[smoke] batched_expand_stats ({label}) T={T} n={n} W={W}: kernel "
               f"{kernel_ms:.6f} ms (one call {kernel_call:.6f}), plain {plain_ms:.6f} ms "
@@ -294,6 +317,215 @@ def phase_kernels(dev):
                 "library_ms": None,  # no single PyTorch call computes a popcount panel
             }
     return out
+
+
+EXPAND_NS = (1, 31, 33, 300, 600, 1300, 2048)
+EXPAND_TS = (1, 2, 7, 128, 1024)
+
+
+def _plane_masks(n: int, T: int, rng):
+    """(T, W) masks like the VC plane's early tasks: every vertex, less a
+    random sixteenth."""
+    import numpy as np
+
+    from repro_torch.graphs.bitgraph import mask_full, n_words
+
+    drop = np.full((T, n_words(n)), 0xFFFFFFFF, np.uint32)
+    for _ in range(4):
+        drop &= rng.integers(0, 2**32, size=drop.shape, dtype=np.uint32)
+    return np.tile(mask_full(n), (T, 1)) & ~drop
+
+
+def phase_expand_kernels(dev) -> dict:
+    """The fused ``vc_expand`` and ``clique_expand`` vs their plain versions,
+    every output (vertex cover's trip counts too) exactly, one instance and a
+    padded batch of 3 with a task-row map; then their times at the plane's
+    shapes.  Returns their fields of the kernels line (launches aside)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs.bitgraph import complement, mask_full, n_words
+    from repro_torch.graphs.generators import erdos_renyi, p_hat_like
+    from repro_torch.kernels.bitset_ops import (
+        clique_expand,
+        clique_expand_ref,
+        vc_expand,
+        vc_expand_ref,
+    )
+    from repro_torch.kernels.bitset_ops.ref import vc_reduce_step
+    from repro_torch.launch.timing import call_ms, time_ms
+
+    kernels = {"vc_expand": (vc_expand, vc_expand_ref),
+               "clique_expand": (clique_expand, clique_expand_ref)}
+    checked = dict.fromkeys(kernels, 0)
+    for n in EXPAND_NS:
+        W = n_words(n)
+        for B in (1, 3):
+            adj_np, sizes = _instances(n, B, n + 1)
+            adj = words_on(adj_np, dev)
+            for T in EXPAND_TS:
+                rng = np.random.default_rng(n * 10_000 + T * 10 + B + 5)
+                inst_np = rng.integers(0, B, size=T).astype(np.int32)
+                inst = None if B == 1 else torch.from_numpy(inst_np).to(dev)
+                own = np.zeros((T, W), np.uint32)
+                for t in range(T):
+                    f = mask_full(sizes[inst_np[t]])
+                    own[t, : f.shape[0]] = f
+                rows = {k: v & own for k, v in _row_kinds(n, T, rng).items()}
+                sols = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & own
+                for kind, masks in rows.items():
+                    m = words_on(masks, dev)
+                    sol_kinds = {"disjoint": sols & ~masks, "empty": 0 * sols, "full": own}
+                    for skind, sol in sol_kinds.items():
+                        s_ = words_on(sol, dev)
+                        for name, (kernel, plain) in kernels.items():
+                            if name == "vc_expand" and (skind != "disjoint" or (T > 128 and n > 600)):
+                                # a cover and its mask are disjoint, and the
+                                # sol steers no rule: one kind, and T = 1024
+                                # only up to n = 600, keep the plain
+                                # version's time in bounds
+                                continue
+                            got, want = kernel(adj, m, s_, inst), plain(adj, m, s_, inst)
+                            torch.cuda.synchronize()
+                            for field, a in got._asdict().items():
+                                b = getattr(want, field)
+                                check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                                      f"{name} != plain version in {field} at n={n} B={B} "
+                                      f"T={T} masks={kind} sols={skind}")
+                            checked[name] += 1
+    for name, cnt in checked.items():
+        print(f"[smoke] {name} == plain version, every output, on {cnt} cases "
+              f"(n in {EXPAND_NS}, T in {EXPAND_TS}, B in (1, 3)"
+              f"{'; T = 1024 only where n <= 600' if name == 'vc_expand' else ''})")
+
+    out = {}
+    T = PAPER_WORKERS
+    rng = np.random.default_rng(1)
+    g = erdos_renyi(**PAPER_GRAPH)
+    n, W = g.n, g.W
+    adj = words_on(g.adj, dev)
+    m = words_on(_plane_masks(n, T, rng), dev)
+    s_ = torch.zeros_like(m)
+    got = vc_expand(adj, m, s_)
+    sweeps = got.sweeps
+    kernel = lambda: vc_expand(adj, m, s_)
+    plain = lambda: vc_expand_ref(adj, m, s_)
+    kernel_ms, kernel_call = time_ms(kernel), call_ms(kernel)
+    # the plain version takes ~0.7 s a call (its ~200 whole-batch sweeps are
+    # host-bound): a few calls time it, where the defaults' 320 took ~220 s
+    plain_ms = time_ms(plain, n=2, runs=3, warmup=1)
+    plain_call = call_ms(plain, reps=3, warmup=1)
+    # adj, masks and sols read once; five word rows and six scalars a row
+    # written; AND, popcount and add per (sweep, vertex in the row's mask at
+    # that sweep, word).  The masks each sweep sees are replayed with the
+    # plain sweep: row t runs sweeps 0 .. sweeps[t] - 1, and reaches the
+    # kernel's reduced sol after them.
+    moved = 4 * (n * W + 2 * T * W + 5 * T * W + 5 * T) + T
+    in_sweeps, rm, rs = 0, m, s_
+    for k in range(int(sweeps.max())):
+        run = sweeps > k
+        in_sweeps += _in_masks(rm[run])
+        rm, rs, _ = vc_reduce_step(adj, rm, rs)
+    check(torch.equal(rs, got.terminal_sol), "the sweep replay of vc_expand's bound "
+          "does not reach the kernel's reduced sol")
+    ops = 3 * W * in_sweeps
+    bound, by = _bound_ms(moved, ops)
+    print(f"[smoke] vc_expand T={T} n={n} W={W} (masks: all vertices less a random "
+          f"sixteenth; sweeps max {int(sweeps.max())}, mean {float(sweeps.float().mean()):.2f}; "
+          f"{in_sweeps / int(sweeps.sum()):.2f} vertices in a sweep's mask on average): "
+          f"kernel {kernel_ms:.6f} ms (one call {kernel_call:.6f}), plain {plain_ms:.6f} ms "
+          f"(one call {plain_call:.6f}), bound {bound:.6f} ms ({moved} B, {ops} ops)")
+    out["vc_expand"] = {
+        "name": "vc_expand",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/bitset_ops/csrc/vc_expand.cu",
+        "replaces": "src/repro/kernels/bitset_ops/kernel.py:180",
+        "exact": True,
+        "max_abs_err": 0,
+        "ms": kernel_ms,
+        "call_ms": kernel_call,
+        "plain_ms": plain_ms,
+        "plain_call_ms": plain_call,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call computes the expansion
+    }
+
+    for label, gc in (("max_clique", p_hat_like(**CLIQUE_GRAPH)),
+                      ("mis", complement(erdos_renyi(**PAPER_GRAPH)))):
+        n, W = gc.n, gc.W
+        adj = words_on(gc.adj, dev)
+        masks = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & mask_full(n)
+        sols = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & mask_full(n) & ~masks
+        m, s_ = words_on(masks, dev), words_on(sols, dev)
+        kernel = lambda: clique_expand(adj, m, s_)
+        plain = lambda: clique_expand_ref(adj, m, s_)
+        kernel_ms, kernel_call = time_ms(kernel), call_ms(kernel)
+        plain_ms, plain_call = time_ms(plain), call_ms(plain)
+        # adj, masks and sols read once; three word rows and 4 scalars and a
+        # flag a row written; the panel's AND, popcount and add per (vertex
+        # in a row's mask, word) and popcount and add per mask and sol word
+        moved = 4 * (n * W + 2 * T * W + 3 * T * W + 4 * T) + T
+        ops = 3 * W * _in_masks(m) + 4 * T * W
+        bound, by = _bound_ms(moved, ops)
+        print(f"[smoke] clique_expand ({label}) T={T} n={n} W={W}: kernel {kernel_ms:.6f} ms "
+              f"(one call {kernel_call:.6f}), plain {plain_ms:.6f} ms (one call "
+              f"{plain_call:.6f}), bound {bound:.6f} ms ({moved} B, {ops} ops)")
+        if label == "max_clique":
+            out["clique_expand"] = {
+                "name": "clique_expand",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/bitset_ops/csrc/clique_expand.cu",
+                "replaces": "src/repro/kernels/bitset_ops/kernel.py:138",
+                "exact": True,
+                "max_abs_err": 0,
+                "ms": kernel_ms,
+                "call_ms": kernel_call,
+                "plain_ms": plain_ms,
+                "plain_call_ms": plain_call,
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": None,
+            }
+    return out
+
+
+def phase_composed(dev) -> dict:
+    """The composed expansion on the card: vertex cover and max clique with
+    ``expand_tasks=None``, so the plane composes task_bound, branch_once and
+    child_bound, whose panels are the ``batched_degrees`` and
+    ``batched_expand_stats`` kernels.  Every vertex-cover golden of
+    ``tests/golden_vc.json`` and ``clique_smoke`` reproduce through it, and
+    it launches no fused kernel.  Returns its launch counts."""
+    import dataclasses
+
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import counts
+    from repro_torch.problems.registry import get_problem
+
+    golden = json.loads((ROOT / "tests" / "golden_vc.json").read_text())
+    vc = dataclasses.replace(get_problem("vertex_cover"), expand_tasks=None)
+    mc = dataclasses.replace(get_problem("max_clique"), expand_tasks=None)
+    counts.reset()
+    for label, c in golden["solo"].items():
+        kw = dict(c["solve_kw"])
+        if "policy_priority" in kw:
+            kw["policy"] = "priority" if kw.pop("policy_priority") else "random"
+        r = SolverSession(vc, config=SolveConfig(**kw), device=dev).solve(erdos_renyi(**c["graph"]))
+        check(record(r) == c["result"], f"composed golden {label}: {record(r)} != {c['result']}")
+    graphs = [erdos_renyi(20, 0.4, seed) for seed in range(4)]
+    batch = SolverSession(mc, config=SolveConfig(num_workers=4, steps_per_round=8),
+                          device=dev).solve_many(graphs)
+    sizes = [r.best_size for r in batch.results]
+    check(sizes == [4, 6, 4, 4], f"composed clique_smoke sizes {sizes} != [4, 6, 4, 4]")
+    launches = counts.snapshot()
+    check(launches.get("batched_degrees", 0) > 0 and launches.get("batched_expand_stats", 0) > 0
+          and not launches.get("vc_expand") and not launches.get("clique_expand"),
+          f"the composed expansion launched {launches}")
+    print(f"[smoke] composed expansion (expand_tasks=None): {len(golden['solo'])} VC goldens "
+          f"and clique_smoke {sizes} reproduce; launches={launches}")
+    return launches
 
 
 def record(r) -> dict:
@@ -342,6 +574,10 @@ def phase_goldens(dev) -> dict:
         got = record(r)
         check(got == want, f"golden {label}: got {got}, want {want}")
         check(verify_cover(g, r.best_sol), f"golden {label}: cover does not verify")
+        explore_rounds = r.rounds * SolveConfig(**kw).steps_per_round
+        check(launches.get("vc_expand", 0) == explore_rounds and not launches.get("batched_degrees"),
+              f"golden {label}: {launches} launches, want one vc_expand per explore "
+              f"round ({explore_rounds}) and no batched_degrees")
         opt, _, _ = solve_sequential(g)
         check(opt == r.best_size, f"golden {label}: sequential optimum {opt} != {r.best_size}")
         print(f"[smoke] golden {label}: n={g.n} best={r.best_size} rounds={r.rounds} "
@@ -382,15 +618,16 @@ def phase_clique_goldens(dev) -> dict:
         check(got == want, f"{name} full size: got {got}, want {want}")
         check(verify[name](g, r.best_sol), f"{name} full size: solution does not verify")
         explore_rounds = r.rounds * cfg.steps_per_round
-        check(launches.get("batched_expand_stats", 0) == explore_rounds,
-              f"{name}: {launches} launches, want one batched_expand_stats per "
-              f"explore round ({explore_rounds})")
+        check(launches.get("clique_expand", 0) == explore_rounds
+              and not launches.get("batched_expand_stats"),
+              f"{name}: {launches} launches, want one clique_expand per explore "
+              f"round ({explore_rounds}) and no batched_expand_stats")
         print(f"[smoke] {name} full size: {spec}, m={g.num_edges}, "
               f"{cfg.num_workers} workers: best={r.best_size} rounds={r.rounds} "
               f"nodes={r.nodes_expanded} transfers={r.tasks_transferred} == JAX golden; "
               f"wall={wall:.3f} s, {1e3 * wall / r.rounds:.3f} ms/superstep, "
               f"nodes/s={r.nodes_expanded / wall:.1f}, launches={launches} "
-              f"({launches['batched_expand_stats'] / explore_rounds:.2f} per explore round)")
+              f"({launches['clique_expand'] / explore_rounds:.2f} per explore round)")
         out[name] = launches
     return out["max_clique"]
 
@@ -411,12 +648,13 @@ def phase_batch(dev, solo_n300: dict) -> None:
     session = SolverSession(config=cfg, device=dev)
     g0, g1 = (erdos_renyi(seed=s, **BATCH_GRAPH) for s in (0, 1))
 
-    def per_panel(launches, explore_rounds, sweeps):
-        # one launch per degree panel: two per explore round, one per sweep
-        check(launches.get("batched_degrees", 0) == 2 * explore_rounds + sweeps,
-              f"{launches} launches for {explore_rounds} explore rounds and "
-              f"{sweeps} sweeps: not one launch per panel")
-        return (launches["batched_degrees"] - sweeps) / explore_rounds
+    def per_round(launches, explore_rounds):
+        # one vc_expand launch per explore round for the whole batch
+        check(launches.get("vc_expand", 0) == explore_rounds
+              and not launches.get("batched_degrees"),
+              f"{launches} launches for {explore_rounds} explore rounds: want one "
+              f"vc_expand per explore round and no batched_degrees")
+        return launches["vc_expand"] / explore_rounds
 
     counts.reset()
     t0 = time.perf_counter()
@@ -432,13 +670,13 @@ def phase_batch(dev, solo_n300: dict) -> None:
     ran = max(r0.rounds, r1.rounds)  # no compaction at B = 2: the chunk loop ran this
     check(batch.compactions == 0, f"unexpected compaction: {batch.compactions}")
     sweeps = batch.lane_stats.reduce_sweeps
-    per_round = per_panel(launches, ran * cfg.steps_per_round, sweeps)
+    rate = per_round(launches, ran * cfg.steps_per_round)
     print(f"[smoke] solve_many VC G(300, 4/299, seeds 0, 1), 64 workers: "
           f"instance 0 == golden_smoke, instance 1 == its solo solve "
           f"(best {r1.best_size}, {r1.rounds} rounds, solo wall {wall1:.3f} s, "
           f"sweeps {solo1.stats.reduce_sweeps}); batch wall {wall:.3f} s; "
-          f"launches={launches}, sweeps={sweeps}: {per_round:.0f} per explore round "
-          f"+ one per sweep, for the whole batch")
+          f"launches={launches}, sweeps={sweeps}: {rate:.0f} per explore round "
+          f"for the whole batch")
 
     counts.reset()
     twins = session.solve_many([g0, g0])
@@ -447,7 +685,7 @@ def phase_batch(dev, solo_n300: dict) -> None:
         check(record(r) == smoke["result"], f"twin batch: {record(r)} != golden_smoke")
     check(launches == solo_n300["launches"],
           f"a batch of two copies launched {launches}, one solo solve "
-          f"{solo_n300['launches']}: the batch must launch once per panel")
+          f"{solo_n300['launches']}: the batch must launch once per explore round")
     print(f"[smoke] solve_many of two copies of seed 0: launches={launches} == "
           f"the solo solve's, sweeps {twins.lane_stats.reduce_sweeps} == "
           f"{solo_n300['reduce_sweeps']}")
@@ -465,7 +703,7 @@ def phase_batch(dev, solo_n300: dict) -> None:
         check(r.best_size == solve_sequential_max_clique(g)[0] and verify_clique(g, r.best_sol),
               "clique_smoke: disagrees with the sequential reference")
     ran = max(r.rounds for r in batch.results)
-    check(launches.get("batched_expand_stats", 0) == ran * cfg.steps_per_round,
+    check(launches == {"clique_expand": ran * cfg.steps_per_round},
           f"clique_smoke: {launches} launches for {ran * cfg.steps_per_round} "
           f"explore rounds of the batch of 4")
     print(f"[smoke] clique_smoke on the card: sizes={sizes} (verified against the "
@@ -501,17 +739,20 @@ def phase_paper(dev, max_rounds: int) -> dict:
               f"paper run {i}: cover does not verify")
         check(r.stats.overflow_count == 0, f"paper run {i}: overflow {r.stats.overflow_count}")
         explore_rounds = r.rounds * cfg.steps_per_round
-        print(f"[smoke] paper run {i}: best={r.best_size} rounds={r.rounds} "
+        exact = r.rounds < max_rounds  # the plane stopped with its frontier empty
+        print(f"[smoke] paper run {i}: {'EXACT' if exact else 'anytime (cap reached)'} "
+              f"best={r.best_size} rounds={r.rounds} "
               f"nodes={r.nodes_expanded} transfers={r.tasks_transferred} "
               f"wall={wall:.3f} s nodes/s={r.nodes_expanded / wall:.1f} "
-              f"supersteps/s={r.rounds / wall:.3f} "
+              f"supersteps/s={r.rounds / wall:.3f} s/superstep={wall / r.rounds:.4f} "
               f"reduce_sweeps={r.stats.reduce_sweeps} "
               f"sweeps/explore_round={r.stats.reduce_sweeps / explore_rounds:.2f} "
               f"launches={launches}")
         runs.append(record(r))
     check(runs[0] == runs[1], f"paper runs differ: {runs[0]} vs {runs[1]}")
-    check(launches.get("batched_degrees", 0) > 0,
-          f"the main path launched no batched_degrees kernel: {launches}")
+    check(launches == {"vc_expand": explore_rounds},
+          f"the main path launched {launches}: want one vc_expand per explore round "
+          f"({explore_rounds}) and nothing else")
     return launches
 
 
@@ -1081,14 +1322,23 @@ def main() -> None:
         return out
 
     kernels = timed("kernels", phase_kernels, dev)
+    kernels.update(timed("expand_kernels", phase_expand_kernels, dev))
+    composed = timed("composed", phase_composed, dev)
     solo_n300 = timed("goldens", phase_goldens, dev)
     clique = timed("clique_mis", phase_clique_goldens, dev)
     timed("batch", phase_batch, dev, solo_n300)
     launches = timed("paper", phase_paper, dev, args.paper_max_rounds)
-    kernels["batched_degrees"]["launches"] = launches.get("batched_degrees", 0)
-    kernels["batched_expand_stats"]["launches"] = clique.get("batched_expand_stats", 0)
-    check(kernels["batched_expand_stats"]["launches"] > 0,
-          "the max-clique path launched no batched_expand_stats kernel")
+    # the panel kernels serve the composed expansion; the fused ones the
+    # solver's main paths (vertex cover's at the paper's size, max clique's)
+    for name in ("batched_degrees", "batched_expand_stats"):
+        kernels[name]["launches"] = composed.get(name, 0)
+        kernels[name]["path"] = "composed expansion (expand_tasks=None), phase 2"
+    kernels["vc_expand"]["launches"] = launches.get("vc_expand", 0)
+    kernels["vc_expand"]["path"] = "vertex cover at the paper's size, phase 7"
+    kernels["clique_expand"]["launches"] = clique.get("clique_expand", 0)
+    kernels["clique_expand"]["path"] = "max clique exact solve, phase 4"
+    for name in ("batched_degrees", "batched_expand_stats", "vc_expand", "clique_expand"):
+        check(kernels[name]["launches"] > 0, f"its path launched no {name} kernel")
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

@@ -26,10 +26,10 @@ class SolveStats:
     transfer_rounds: int = 0
     transfer_bytes_total: int = 0
     transfer_bytes_per_round: float = 0.0
-    # reduction sweeps run over whole P·lanes task batches; each launches
-    # one degree panel (the port batches the JAX package's per-lane loops).
-    # Solo solves only: a batch's sweeps serve all its instances and are
-    # counted in LaneStats.reduce_sweeps
+    # reduction sweeps: the sum over explore rounds of the largest per-lane
+    # trip count of the reduction loop (the JAX package's vmapped
+    # while_loop runs that many).  Solo solves only: a batch's rounds serve
+    # all its instances and are counted in LaneStats.reduce_sweeps
     reduce_sweeps: int = 0
     # -- sequential reference -------------------------------------------------
     pruned: int = 0
@@ -42,8 +42,9 @@ class LaneStats:
     """Batched-plane occupancy: ``chunk_calls`` (chunk dispatches),
     ``lane_chunks`` (chunk_calls × plane width — paid lane slots),
     ``live_lane_chunks`` (slots that held an unfinished instance) and their
-    ratio ``occupancy``.  ``reduce_sweeps`` (the port's own) counts the
-    reduction sweeps run over whole batches, one degree panel each."""
+    ratio ``occupancy``.  ``reduce_sweeps`` (the port's own) sums, over the
+    batch's explore rounds, the largest per-lane trip count of the
+    reduction loop."""
 
     chunk_calls: int = 0
     lane_chunks: int = 0

@@ -13,10 +13,10 @@ crosses instances.  One superstep =
 
   1. **explore** — each worker expands up to ``lanes`` of its deepest tasks
      for ``steps_per_round`` rounds; all B·P·lanes tasks of a round go
-     through ONE batched ``expand_tasks`` (vertex cover: two
-     ``batched_degrees`` launches plus one per reduction sweep; max clique
-     and MIS: one ``batched_expand_stats`` launch), each task row reading
-     its own instance's adjacency;
+     through ONE batched ``expand_tasks`` (vertex cover: one ``vc_expand``
+     launch, its reduction loop included; max clique and MIS: one
+     ``clique_expand`` launch), each task row reading its own instance's
+     adjacency;
   2. **control plane** — per worker (pending, shallowest depth, local best),
      packed into one int32 per worker with ``packed_status``;
   3. **replicated center** — the idle->donor matching
@@ -423,6 +423,8 @@ def build_batch_plane_fn(
                 done = done | (flat.best_val.view(B, P)[:, 0] <= fpt_bounds)
             done_h = done.cpu().numpy()
             ran += 1
+        if counters is not None:
+            counters.flush()  # the device finished its work at the read of done
         worker = map_state(lambda x: x.view(B, P, *x.shape[1:]), flat)
         hot = pending_per_worker(flat.frontier).view(B, P)
         return worker, done, rounds_delta, ran, hot

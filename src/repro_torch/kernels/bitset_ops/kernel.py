@@ -1,12 +1,16 @@
-"""``batched_degrees`` and ``batched_expand_stats``: wrappers of the
-hand-written CUDA kernels.
+"""Wrappers of the hand-written CUDA bitset kernels.
 
-They replace the Pallas TPU kernels ``repro/kernels/bitset_ops/kernel.py:180``
-(``batched_degrees``, body ``_degrees_kernel`` at :72) and
-``repro/kernels/bitset_ops/kernel.py:138`` (``batched_expand_stats``, body
-``_expand_stats_kernel`` at :95).  The sources are ``csrc/degrees.cu`` and
-``csrc/expand_stats.cu``; each is built with nvcc for ``sm_90a`` on first use
-(see :mod:`repro_torch.kernels.build`) and called through ``ctypes``.
+``batched_degrees`` and ``batched_expand_stats`` replace the Pallas TPU
+kernels ``repro/kernels/bitset_ops/kernel.py:180`` (``batched_degrees``,
+body ``_degrees_kernel`` at :72) and ``repro/kernels/bitset_ops/kernel.py:138``
+(``batched_expand_stats``, body ``_expand_stats_kernel`` at :95), sources
+``csrc/degrees.cu`` and ``csrc/expand_stats.cu``.  ``vc_expand`` and
+``clique_expand`` are the Hopper redesign of the same two kernels on the
+solver's hot path: each computes its problem's whole ``expand_tasks`` in one
+launch, the panel inside the work that consumes it (``csrc/vc_expand.cu``,
+``csrc/clique_expand.cu``, sharing ``csrc/bitset_block.cuh``).  Each source
+is built with nvcc for ``sm_90a`` on first use (see
+:mod:`repro_torch.kernels.build`) and called through ``ctypes``.
 
 Both take an instance axis: ``adj`` is ``(n, W)`` or ``(B, n, W)`` and
 ``inst`` ((T,) int32, or None for instance 0) names each task row's
@@ -25,20 +29,27 @@ the card to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build, counts
-from repro_torch.kernels.bitset_ops.ref import batched_degrees_ref, expand_stats_ref
+from repro_torch.kernels.bitset_ops.ref import (
+    ExpandOut,
+    batched_degrees_ref,
+    clique_expand_ref,
+    expand_stats_ref,
+    vc_expand_ref,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _launcher(lib_name: str, fn_name: str, n_ptrs: int, err_name: str):
+def _launcher(lib_name: str, fn_name: str, n_ptrs: int, err_name: str, n_ints: int = 4):
     lib = build.load(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:  # first use in this process
-        fn.argtypes = [_P] * n_ptrs + [_I, _I, _I, _I, _P]  # ..., n, W, T, B, stream
+        fn.argtypes = [_P] * n_ptrs + [_I] * n_ints + [_P]  # ..., n, W, T, B[, ...], stream
         fn.restype = ctypes.c_int
         err = getattr(lib, err_name)
         err.argtypes = [ctypes.c_int]
@@ -148,3 +159,82 @@ def batched_expand_stats(
     _raise(name, err, rc, f"T={T}, B={B}, n={n}, W={W}")
     counts.bump(name)
     return deg, pc
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _expand_outputs(T: int, W: int, n_words: int, n_stats: int, device):
+    words = torch.empty((n_words, T, W), dtype=torch.int32, device=device)
+    stats = torch.empty((n_stats, T), dtype=torch.int32, device=device)
+    is_terminal = torch.empty((T,), dtype=torch.bool, device=device)
+    return words, stats, is_terminal
+
+
+def vc_expand(adj: torch.Tensor, masks: torch.Tensor, sols: torch.Tensor,
+              inst=None) -> ExpandOut:
+    """Vertex cover's ``expand_tasks`` for T task rows in one launch: adj
+    (n, W) or (B, n, W), masks/sols (T, W), inst (T,) or None, all int32 ->
+    :class:`ExpandOut` with each row's reduction trip count in ``sweeps``.
+
+    One block a row runs the row's reduction loop to its fixpoint on the
+    card (``csrc/vc_expand.cu``)."""
+    name = "vc_expand"
+    adj3 = _check(name, adj, inst, masks=masks, sols=sols)
+    if not _route(name, adj3, masks, sols, inst):
+        return vc_expand_ref(adj, masks, sols, inst)
+    B, n, W = adj3.shape
+    T = masks.shape[0]
+    words, stats, is_terminal = _expand_outputs(T, W, 5, 5, adj.device)
+    if T > 0:
+        fn, err = _launcher("vc_expand", "vc_expand_launch", 7, "vc_expand_error_string")
+        with torch.cuda.device(adj.device):
+            stream = torch.cuda.current_stream(adj.device).cuda_stream
+            rc = fn(adj3.data_ptr(), masks.data_ptr(), sols.data_ptr(),
+                    None if inst is None else inst.data_ptr(),
+                    words.data_ptr(), stats.data_ptr(), is_terminal.data_ptr(),
+                    n, W, T, B, stream)
+        _raise(name, err, rc, f"T={T}, B={B}, n={n}, W={W}")
+        counts.bump(name)
+    return ExpandOut(
+        bound=stats[0], left_mask=words[0], left_sol=words[1], right_mask=words[2],
+        right_sol=words[3], is_terminal=is_terminal, terminal_sol=words[4],
+        terminal_value=stats[1], left_bound=stats[2], right_bound=stats[3],
+        sweeps=stats[4],
+    )
+
+
+def clique_expand(adj: torch.Tensor, masks: torch.Tensor, sols: torch.Tensor,
+                  inst=None) -> ExpandOut:
+    """Max clique's ``expand_tasks`` (MIS: on the complement adjacency) for T
+    task rows in one launch -> :class:`ExpandOut` (``sweeps`` None).
+
+    A block serves ceil(T / SMs) consecutive rows with its instance's
+    adjacency staged once (``csrc/clique_expand.cu``).  ``right_sol`` and
+    ``terminal_sol`` are ``sols`` itself, as in the JAX package."""
+    name = "clique_expand"
+    adj3 = _check(name, adj, inst, masks=masks, sols=sols)
+    if not _route(name, adj3, masks, sols, inst):
+        return clique_expand_ref(adj, masks, sols, inst)
+    B, n, W = adj3.shape
+    T = masks.shape[0]
+    words, stats, is_terminal = _expand_outputs(T, W, 3, 4, adj.device)
+    if T > 0:
+        rows_per_block = -(-T // _sm_count(adj.device.index))
+        fn, err = _launcher("clique_expand", "clique_expand_launch", 7,
+                            "clique_expand_error_string", n_ints=5)
+        with torch.cuda.device(adj.device):
+            stream = torch.cuda.current_stream(adj.device).cuda_stream
+            rc = fn(adj3.data_ptr(), masks.data_ptr(), sols.data_ptr(),
+                    None if inst is None else inst.data_ptr(),
+                    words.data_ptr(), stats.data_ptr(), is_terminal.data_ptr(),
+                    n, W, T, B, rows_per_block, stream)
+        _raise(name, err, rc, f"T={T}, B={B}, n={n}, W={W}")
+        counts.bump(name)
+    return ExpandOut(
+        bound=stats[0], left_mask=words[0], left_sol=words[1], right_mask=words[2],
+        right_sol=sols, is_terminal=is_terminal, terminal_sol=sols,
+        terminal_value=stats[1], left_bound=stats[2], right_bound=stats[3],
+    )

@@ -28,6 +28,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 SOURCES = {
     "bitset_ops": _PKG / "bitset_ops" / "csrc" / "degrees.cu",
     "expand_stats": _PKG / "bitset_ops" / "csrc" / "expand_stats.cu",
+    "vc_expand": _PKG / "bitset_ops" / "csrc" / "vc_expand.cu",
+    "clique_expand": _PKG / "bitset_ops" / "csrc" / "clique_expand.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "flash_attention_wgmma": _PKG / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
     "wkv6": _PKG / "wkv6" / "csrc" / "wkv6.cu",

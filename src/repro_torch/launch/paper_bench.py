@@ -1,4 +1,4 @@
-"""Time the vertex-cover main path at the paper's size, and its degree panel.
+"""Time the vertex-cover main path at the paper's size, and the degree panel kernel.
 
   python3 src/repro_torch/launch/paper_bench.py [--src DIR] [--max-rounds 8] [--runs 2]
 

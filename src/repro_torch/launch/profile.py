@@ -15,8 +15,9 @@ Prints:
 * the hand-written kernels' device time per launch, from the trace (their
   µs-scale bodies are far below the host time of a call, which a CUDA
   event pair around one call measures instead);
-* the median device time of one panel at the plane's batch shape, from CUDA
-  events (vertex cover: also one reduction sweep);
+* the device time of one ``expand_tasks`` call at the plane's batch shape
+  (``time_ms``: back-to-back calls between two CUDA events), which is one
+  ``vc_expand`` or ``clique_expand`` launch: what each explore round runs;
 * the solve's reduction sweeps and kernel launches.
 
 The trace itself goes to ``--trace`` (default
@@ -28,7 +29,6 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import statistics
 import time
 from pathlib import Path
 
@@ -38,28 +38,14 @@ from repro_torch.api import SolveConfig, SolverSession
 from repro_torch.core import engine
 from repro_torch.graphs.generators import erdos_renyi, p_hat_like
 from repro_torch.kernels import counts
-from repro_torch.problems import vertex_cover
-from repro_torch.problems.base import degrees_batch, expand_stats_batch, make_data
+from repro_torch.launch.timing import time_ms
+from repro_torch.problems.base import make_data
 from repro_torch.problems.registry import get_problem
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the hand-written kernels' names in a trace (kernels/*/csrc/*.cu)
-PORT_KERNELS = ("batched_degrees_kernel", "batched_expand_stats_kernel")
-
-
-def _median_ms(fn, reps: int = 30) -> float:
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+PORT_KERNELS = ("batched_degrees_kernel", "batched_expand_stats_kernel",
+                "vc_expand_kernel", "clique_expand_kernel")
 
 
 def _device_intervals(trace_path: Path):
@@ -151,26 +137,19 @@ def main(argv=None) -> None:
             print(f"[profile] {kernel}: {ms:.3f} ms of device time over {cnt} launches, "
                   f"{1e3 * ms / cnt:.3f} µs a launch")
 
-    # one panel (and for vertex cover one reduction sweep) at the plane's
-    # batch shape
+    # one expand_tasks call (one fused kernel launch) at the plane's batch
+    # shape, on the startup split's tasks
     data = make_data(spec, g, dev)
     state = engine.make_instance_state(
         spec, g, args.workers, 4 * g.n + 8, g.W, spec.bnb_bound(g), dev
     )
     masks = state.frontier.masks[:, 0].contiguous()
     sols = state.frontier.sols[:, 0].contiguous()
-    if args.problem != "vertex_cover":
-        panel_ms = _median_ms(lambda: expand_stats_batch(data, masks, sols))
-        print(f"[profile] one expand-stats panel at T={masks.shape[0]}: "
-              f"{panel_ms:.4f} ms device; {1e3 * wall_s / explore_rounds:.4f} ms "
-              f"of wall per explore round")
-        return
-    sweep_ms = _median_ms(lambda: vertex_cover._reduce_step(data, masks, sols))
-    panel_ms = _median_ms(lambda: degrees_batch(data, masks))
-    print(f"[profile] one reduction sweep at T={masks.shape[0]}: {sweep_ms:.4f} ms "
-          f"device; one degree panel: {panel_ms:.4f} ms")
-    print(f"[profile] sweeps x sweep time = "
-          f"{r.stats.reduce_sweeps * sweep_ms / 1e3:.3f} s of the {wall_s:.3f} s wall")
+    expand_ms = time_ms(lambda: spec.expand_tasks(data, masks, sols))
+    print(f"[profile] one expand_tasks call at T={masks.shape[0]}: {expand_ms:.4f} ms "
+          f"of device time; {1e3 * wall_s / explore_rounds:.4f} ms of wall per "
+          f"explore round; explore rounds x that call = "
+          f"{explore_rounds * expand_ms / 1e3:.3f} s of the {wall_s:.3f} s wall")
 
 
 if __name__ == "__main__":

@@ -20,9 +20,18 @@ import numpy as np
 import torch
 
 from repro_torch.graphs.bitgraph import mask_full
-from repro_torch.kernels.bitset_ops.ref import popcount32
-
-WORD_BITS = 32
+from repro_torch.kernels.bitset_ops.ref import (  # noqa: F401  (re-exported)
+    WORD_BITS,
+    ExpandOut,
+    first_index,
+    i32_from_u32,
+    pack_bits,
+    popcount32,
+    popcount_rows,
+    single_bit,
+    task_rows,
+    unpack_bits,
+)
 
 
 class ProblemData(NamedTuple):
@@ -66,64 +75,56 @@ class ExpandResult(NamedTuple):
     left_bound: torch.Tensor  # (L,) int32
     right_bound: torch.Tensor  # (L,) int32
 
+    @classmethod
+    def of(cls, out: ExpandOut) -> "ExpandResult":
+        """From a fused kernel's (or its plain version's) outputs."""
+        return cls(
+            bound=out.bound,
+            step=BranchStep(*(getattr(out, f) for f in BranchStep._fields)),
+            left_bound=out.left_bound,
+            right_bound=out.right_bound,
+        )
+
 
 @dataclasses.dataclass
 class WorkCounters:
     """Host-side tallies of data-dependent device work, filled by the solve
-    plane when a caller passes one in (never a hidden global)."""
+    plane when a caller passes one in (never a hidden global).
 
-    reduce_sweeps: int = 0  # reduction sweeps run over a whole lane batch
+    ``reduce_sweeps`` is the sum, over the expansions of a batch (an explore
+    round, or a composed ``branch_once``), of the largest per-row trip count
+    of the reduction loop: the sweeps the JAX package's vmapped
+    ``while_loop`` runs.  On the card each round's (T,) trip counts are kept
+    as they are, so counting adds no launch and no sync to a round, and
+    :meth:`flush`, which the plane runner calls after its own sync at the
+    end of a chunk, reduces them all at once."""
+
+    reduce_sweeps: int = 0
+    _pending: list = dataclasses.field(default_factory=list, repr=False)
+
+    def add_sweeps(self, sweeps: torch.Tensor) -> None:
+        """Count one batch's reduction: ``sweeps`` (T,) int32 trip counts."""
+        if sweeps.numel() == 0:
+            return
+        if sweeps.device.type == "cpu":
+            self.reduce_sweeps += int(sweeps.max())
+            return
+        self._pending.append(sweeps)
+
+    def flush(self) -> None:
+        """Fold the card's pending trip counts into ``reduce_sweeps``: each
+        round's maximum, summed, in one read.  Trip counts are at least 1, so
+        the zeros that pad shorter rounds change no maximum."""
+        if self._pending:
+            rounds = torch.nn.utils.rnn.pad_sequence(self._pending, batch_first=True)
+            self.reduce_sweeps += int(rounds.amax(dim=1).sum())
+            self._pending = []
 
 
 # -- packed-bitset primitives ---------------------------------------------------
+# (defined beside the kernels' plain versions, which use them too)
 
-
-def popcount(words: torch.Tensor) -> torch.Tensor:
-    """Popcount summed over the trailing word axis -> int32."""
-    return popcount32(words).sum(dim=-1, dtype=torch.int32)
-
-
-def i32_from_u32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> int32 with the same 32 bits."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
-
-
-def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
-    """(..., W) int32 -> (..., n) bool (LSB-first)."""
-    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
-    bits = (words[..., :, None] >> shifts) & 1
-    return bits.reshape(*words.shape[:-1], -1)[..., :n].bool()
-
-
-def pack_bits(bits: torch.Tensor, W: int) -> torch.Tensor:
-    """(..., n) bool -> (..., W) int32 (LSB-first)."""
-    n = bits.shape[-1]
-    pad = W * WORD_BITS - n
-    if pad:
-        bits = torch.cat(
-            [bits, bits.new_zeros((*bits.shape[:-1], pad))], dim=-1
-        )
-    b = bits.reshape(*bits.shape[:-1], W, WORD_BITS).to(torch.int64)
-    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=bits.device)
-    return i32_from_u32((b << shifts).sum(dim=-1))
-
-
-def single_bit(v: torch.Tensor, W: int) -> torch.Tensor:
-    """(...,) vertex indices -> (..., W) int32 masks with only bit v set."""
-    word = v // WORD_BITS
-    value = i32_from_u32(torch.ones_like(v, dtype=torch.int64) << (v % WORD_BITS))
-    cols = torch.arange(W, device=v.device)
-    return torch.where(cols == word[..., None], value[..., None], 0).to(torch.int32)
-
-
-def first_index(cond: torch.Tensor) -> torch.Tensor:
-    """(L, m) bool -> (L,) int64 lowest index where cond holds; m if none.
-
-    The tie rule of ``jnp.argmax``/``argmin``, computed explicitly rather
-    than trusting a torch tie order."""
-    m = cond.shape[-1]
-    idx = torch.arange(m, device=cond.device)
-    return torch.where(cond, idx, m).amin(dim=-1)
+popcount = popcount_rows  # popcount summed over the trailing word axis -> int32
 
 
 # -- the instance axis ---------------------------------------------------------
@@ -158,18 +159,15 @@ def row_instances(data: ProblemData, T: int):
 
 def adj_rows(data: ProblemData, u: torch.Tensor) -> torch.Tensor:
     """(T,) vertices -> (T, W) adjacency rows, each from its task's instance."""
-    inst = row_instances(data, u.shape[0])
-    if inst is None:
-        return data.adj[0][u]
-    return data.adj[inst, u]
+    return task_rows(data.adj, row_instances(data, u.shape[0]), u)
 
 
 def degrees_batch(data: ProblemData, masks: torch.Tensor) -> torch.Tensor:
     """(L, W) task masks -> (L, n) induced degrees, -1 outside the mask.
 
-    The branching hot spot: ONE ``batched_degrees`` call for the whole lane
-    batch of every instance, the CUDA kernel on the card and its plain
-    version on the CPU."""
+    The composed path's panel (the fused expansions compute their own): ONE
+    ``batched_degrees`` call for the whole lane batch of every instance, the
+    CUDA kernel on the card and its plain version on the CPU."""
     from repro_torch.kernels.bitset_ops.ops import degrees_op
 
     return degrees_op(data.adj, masks, row_instances(data, masks.shape[0]))
@@ -186,11 +184,6 @@ def expand_stats_batch(data: ProblemData, masks: torch.Tensor, sols: torch.Tenso
     return expand_stats_op(
         data.adj, masks, sols, row_instances(data, masks.shape[0])
     )
-
-
-def edge_count(deg: torch.Tensor) -> torch.Tensor:
-    """(L, n) degrees -> (L,) int32 edge counts of the induced subgraphs."""
-    return deg.clamp(min=0).sum(dim=-1, dtype=torch.int32) // 2
 
 
 # -- the plugin contract --------------------------------------------------------

@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA ``batched_degrees`` and
-``batched_expand_stats`` kernels against their plain versions (one instance
-and a padded batch with a task-row map), the goldens through
-``SolverSession(device="cuda")``, the CUDA ``flash_attention`` (both
+"""The port on the card: the CUDA ``batched_degrees``,
+``batched_expand_stats``, ``vc_expand`` and ``clique_expand`` kernels
+against their plain versions (one instance and a padded batch with a
+task-row map), the goldens through ``SolverSession(device="cuda")`` (one
+fused launch per explore round), the CUDA ``flash_attention`` (both
 variants: tensor cores and CUDA cores) and ``wkv6`` kernels against their
 plain versions, and the LM serving path through them.
 
@@ -26,7 +27,11 @@ from repro_torch.kernels.bitset_ops import (
     batched_degrees,
     batched_degrees_ref,
     batched_expand_stats,
+    clique_expand,
+    clique_expand_ref,
     expand_stats_ref,
+    vc_expand,
+    vc_expand_ref,
 )
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.kernel import variant_for
@@ -72,8 +77,10 @@ def test_goldens_on_card(cuda):
     case = golden["solo"]["multi_lane_donate"]
     g = erdos_renyi(**case["graph"])
     counts.reset()
-    r = SolverSession(config=SolveConfig(**case["solve_kw"]), device=cuda).solve(g)
-    assert counts.snapshot()["batched_degrees"] > 0
+    cfg = SolveConfig(**case["solve_kw"])
+    r = SolverSession(config=cfg, device=cuda).solve(g)
+    # one fused launch per explore round, no panel kernel
+    assert counts.snapshot() == {"vc_expand": r.rounds * cfg.steps_per_round}
     want = case["result"]
     assert r.best_size == want["best_size"]
     assert [int(w) for w in np.asarray(r.best_sol, np.uint32)] == want["best_sol"]
@@ -111,7 +118,77 @@ def test_max_clique_batch_on_card(cuda):
     batch = SolverSession(problem="max_clique", config=cfg, device=cuda).solve_many(graphs)
     assert [r.best_size for r in batch.results] == [4, 6, 4, 4]
     ran = max(r.rounds for r in batch.results)
-    assert counts.snapshot() == {"batched_expand_stats": ran * cfg.steps_per_round}
+    assert counts.snapshot() == {"clique_expand": ran * cfg.steps_per_round}
+
+
+def _expand_rows(n, T, B, seed):
+    """adj (B, n, W) of B random graphs (instance b > 0 smaller, zero
+    padding rows), a row map, and (T, W) masks and sols of each row's own
+    instance: random rows, then an empty, a full and a single-bit mask."""
+    rng = np.random.default_rng(seed)
+    W = n_words(n)
+    sizes = [n] + [max(1, n - 1 - b * (n // 3)) for b in range(1, B)]
+    adj = np.zeros((B, n, W), np.uint32)
+    for b, nb in enumerate(sizes):
+        adj[b, :nb, : n_words(nb)] = erdos_renyi(nb, min(1.0, 8.0 / max(nb - 1, 1)), seed + b).adj
+    inst = rng.integers(0, B, size=T).astype(np.int32)
+    own = np.zeros((T, W), np.uint32)
+    for t in range(T):
+        f = mask_full(sizes[inst[t]])
+        own[t, : f.shape[0]] = f
+    masks = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & own
+    sols = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32) & own & ~masks
+    if T >= 4:
+        masks[1], masks[2], masks[3] = 0, own[2], 0
+        v = min(31, sizes[inst[3]] - 1)
+        masks[3, v // 32] = np.uint32(1) << np.uint32(v % 32)
+        sols[2] = 0
+    return adj, (inst if B > 1 else None), masks, sols
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("T", [1, 2, 7, 128, 1024])
+@pytest.mark.parametrize("n", [1, 31, 33, 300, 600, 1300, 2048])
+@pytest.mark.parametrize("kernel,plain", [(vc_expand, vc_expand_ref),
+                                          (clique_expand, clique_expand_ref)],
+                         ids=["vc_expand", "clique_expand"])
+def test_expand_kernel_equals_plain_version(cuda, kernel, plain, n, T, B):
+    """Every output exactly (vertex cover's trip counts too): the adjacency
+    staged in shared memory up to n = 1300, read from L2 at 2048."""
+    adj, inst, masks, sols = _expand_rows(n, T, B, n + T + B)
+    a, m, s = _on(adj, cuda), _on(masks, cuda), _on(sols, cuda)
+    i = None if inst is None else torch.from_numpy(inst).to(cuda)
+    counts.reset()
+    got = kernel(a, m, s, i)
+    torch.cuda.synchronize()
+    assert counts.snapshot() == {kernel.__name__: 1}
+    want = plain(a, m, s, i)
+    for field, x in got._asdict().items():
+        y = getattr(want, field)
+        assert (x is None and y is None) or torch.equal(x, y), field
+
+
+@pytest.mark.parametrize("problem", ["vertex_cover", "max_clique"])
+def test_composed_expansion_runs_the_panel_kernels(cuda, problem):
+    """With ``expand_tasks=None`` the plane composes the problem's
+    callables, whose panels are the batched_degrees / batched_expand_stats
+    kernels; the trajectory is the fused one's."""
+    import dataclasses
+
+    from repro_torch.problems.registry import get_problem
+
+    spec = get_problem(problem)
+    composed = dataclasses.replace(spec, expand_tasks=None)
+    g = erdos_renyi(30, 0.22 if problem == "vertex_cover" else 0.4, 0)
+    cfg = SolveConfig(num_workers=5, steps_per_round=8)
+    counts.reset()
+    r = SolverSession(composed, config=cfg, device=cuda).solve(g)
+    launches = counts.snapshot()
+    fused = SolverSession(spec, config=cfg, device=cuda).solve(g)
+    assert (r.best_size, r.rounds, r.nodes_expanded, r.stats.reduce_sweeps) == (
+        fused.best_size, fused.rounds, fused.nodes_expanded, fused.stats.reduce_sweeps)
+    panel = "batched_degrees" if problem == "vertex_cover" else "batched_expand_stats"
+    assert launches.get(panel, 0) > 0 and set(launches) <= {"batched_degrees", panel}
 
 
 # JAX's attention CASES (tests/test_kernels_attention.py:22-30), plus head

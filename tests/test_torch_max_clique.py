@@ -9,7 +9,11 @@
   (n <= 128, W <= 4) with empty, full and single-vertex lanes;
 * solo solves of both problems equal the JAX package's, bnb and fpt (hit
   and miss), and their sequential references agree with the JAX package's;
-* the Gallai identities mis(G) = n - vc(G) and clique(G) = mis(complement(G)).
+* the Gallai identities mis(G) = n - vc(G) and clique(G) = mis(complement(G));
+* the fused expansion ``clique_expand_ref`` (what the CPU path runs, and
+  what the CUDA ``clique_expand`` kernel is held against on the card) gives
+  every output of JAX's ``expand_tasks``, on the graph and on its
+  complement (MIS), for one instance and a padded batch.
 """
 
 import jax
@@ -36,6 +40,8 @@ from repro_torch.kernels import counts
 from repro_torch.kernels.bitset_ops import (
     batched_degrees,
     batched_expand_stats,
+    clique_expand,
+    clique_expand_ref,
     expand_stats_op,
     expand_stats_ref,
 )
@@ -310,3 +316,59 @@ def test_registry_names_and_aliases():
     assert get_torch_problem("maximum_independent_set").name == "mis"
     with pytest.raises(ValueError, match="max_clique"):
         get_torch_problem("knapsack")
+
+
+# -- the fused expansion (clique_expand_ref) -------------------------------------
+
+
+def _assert_clique_expand_equal(out, jex, rows=slice(None)):
+    for field in ("bound", "left_bound", "right_bound"):
+        assert (getattr(out, field)[rows].numpy() == np.asarray(getattr(jex, field))).all(), field
+    for field in jb.BranchStep._fields:
+        want = np.asarray(getattr(jex.step, field))
+        got = getattr(out, field)[rows]
+        got = u32(got) if want.dtype == np.uint32 else got.numpy()
+        assert (got == want).all(), field
+    assert out.sweeps is None
+
+
+@pytest.mark.parametrize("complemented", [False, True], ids=["clique", "mis"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_clique_expand_ref_matches_jax(name, complemented):
+    g = GRAPHS[name]()
+    if complemented:  # MIS branches like max clique on the complement
+        g = BitGraph.from_dense(~g.to_dense() & ~np.eye(g.n, dtype=bool))
+    masks, sols = _lanes(g, 61)
+    jex = jmc.expand_tasks(jb.make_data(JAX_MC, g), masks, sols)
+    counts.reset()
+    out = clique_expand(t32(g.adj), t32(masks), t32(sols))
+    assert counts.snapshot() == {}  # a CPU tensor takes the plain version
+    _assert_clique_expand_equal(out, jex)
+
+
+def test_clique_expand_ref_on_a_padded_mis_batch():
+    """The complements of three instances in one padded batch, rows
+    interleaved by a row map, expand as each instance alone (MIS)."""
+    graphs = [erdos_renyi(n, 0.3, 80 + n) for n in (40, 70, 33)]
+    views = [tbg.complement(tbg.BitGraph(g.n, g.adj)) for g in graphs]
+    W = n_words(70)
+    adj = np.zeros((3, 70, W), np.uint32)
+    per = []
+    for b, v in enumerate(views):
+        adj[b, : v.n, : v.W] = v.adj
+        per.append(_lanes(v, 20 + b, 6))
+    inst = np.repeat(np.arange(3, dtype=np.int32), 6)
+    order = np.random.default_rng(3).permutation(18)
+    masks = np.concatenate([np.pad(m, ((0, 0), (0, W - m.shape[1]))) for m, _ in per])[order]
+    sols = np.concatenate([np.pad(s, ((0, 0), (0, W - s.shape[1]))) for _, s in per])[order]
+    inst = inst[order]
+    out = clique_expand_ref(t32(adj), t32(masks), t32(sols), torch.from_numpy(inst))
+    for b, v in enumerate(views):
+        sel = torch.from_numpy(np.nonzero(inst == b)[0])
+        jg = BitGraph(v.n, np.asarray(v.adj, np.uint32))
+        jex = jmc.expand_tasks(jb.make_data(JAX_MC, jg), masks[sel.numpy(), : v.W],
+                               sols[sel.numpy(), : v.W])
+        sub = out._replace(**{f: getattr(out, f)[sel][..., : v.W] if getattr(out, f).dim() == 2
+                              else getattr(out, f)[sel]
+                              for f in out._fields if getattr(out, f) is not None})
+        _assert_clique_expand_equal(sub, jex)
