@@ -70,7 +70,25 @@ Phases (any failed check raises, so the exit code is not 0):
    witness gap between the plain route and its f64 twin; in f32 the kernel
    forward against the plain one; the decode path's last prompt logits
    against the forward's; and for rwkv6 the prompt as one chunk against two
-   halves.
+   halves;
+11. the live service (run after phase 7) — ``SolveService`` on the card:
+   (a) lane churn, eight tickets G(300, 4/299, seeds 0-7) with distinct
+   priorities through 4 lanes of 64 workers: seed 0 equals
+   ``golden_smoke.json``, the others their solo solves, every cover
+   verifies, one plane, exactly one ``vc_expand`` launch per explore round
+   of the supersteps the plane ran (the service's ``stats()["supersteps"]``)
+   and no ``batched_degrees`` (and the eight solo solves, one after
+   another, timed beside the stream); (b) the paper's size in 2 lanes of 128
+   workers: seed 0 equals phase 7's record, seed 1 with ``deadline=32`` is
+   evicted at 32 supersteps equal to its solo solve capped there; (c) the
+   asyncio front end ``repro_torch.launch.serve`` with its defaults (32
+   max-clique requests, n 14-26, 8 lanes): every size equals the sequential
+   reference, on ``clique_expand`` and no ``batched_expand_stats``.  Prints
+   each stream's step wall (and of it, the plane's chunks, admission,
+   retirement and the rest of the service's host work), occupancy, wait,
+   residency, instances/s and the front end's p50/p99 latency (a smoke
+   reading at n <= 26: the service's latency at the paper's size is
+   measured by ``launch.serve`` itself, PERF.md section 5).
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -753,7 +771,207 @@ def phase_paper(dev, max_rounds: int) -> dict:
     check(launches == {"vc_expand": explore_rounds},
           f"the main path launched {launches}: want one vc_expand per explore round "
           f"({explore_rounds}) and nothing else")
-    return launches
+    return launches, runs[0]
+
+
+# -- the live solve service (phase 11) --------------------------------------------
+
+
+def _per_explore_round(launches: dict, name: str, steps_per_round: int, svc, rounds) -> int:
+    """Check that a service's plane launched ``name`` exactly once per
+    explore round for the whole plane: ``steps_per_round`` times the plane
+    supersteps that its chunks ran (``stats()["supersteps"]``), which lie
+    between the longest ticket's and the tickets' sum (a superstep runs only
+    while some lane is live, and advances every live lane).  Returns the
+    plane supersteps."""
+    n, ran = launches.get(name, 0), svc.stats()["supersteps"]
+    check(max(rounds) <= ran <= sum(rounds),
+          f"the service's plane ran {ran} supersteps for tickets of {list(rounds)}")
+    check(n == steps_per_round * ran,
+          f"the service launched {n} {name} in {ran} plane supersteps: want "
+          f"{steps_per_round * ran}, one per explore round")
+    return ran
+
+
+def _timed_cache():
+    """A plane cache whose batched planes add each chunk's wall to
+    ``chunk_s``: a chunk ends in the plane's own read of ``done``."""
+    from repro_torch.api import PlaneCache
+
+    class TimedCache(PlaneCache):
+        chunk_s = 0.0
+
+        def batch_plane(self, *a):
+            plane = super().batch_plane(*a)
+
+            def timed(*args, **kw):
+                t = time.perf_counter()
+                out = plane(*args, **kw)
+                self.chunk_s += time.perf_counter() - t
+                return out
+
+            return timed
+
+    return TimedCache()
+
+
+def _timed_service(problem: str, cfg, dev):
+    """A service whose host work is timed apart from its plane's chunks:
+    ``admit_s`` is admission (host work and, by a synchronize, its device
+    writes), ``retire_s`` the retirement of finished or evicted lanes (the
+    state fetch, result extraction, freeing the lane); the rest of a step
+    outside the chunks is the reads of ``done``/``rounds`` and the loop."""
+    import torch
+
+    from repro_torch.api import SolveService
+
+    class TimedService(SolveService):
+        admit_s = retire_s = 0.0
+
+        def _admit(self):
+            t = time.perf_counter()
+            super()._admit()
+            torch.cuda.synchronize(dev)
+            self.admit_s += time.perf_counter() - t
+
+        def _retire(self, *a):
+            t = time.perf_counter()
+            out = super()._retire(*a)
+            self.retire_s += time.perf_counter() - t
+            return out
+
+    return TimedService(problem, cfg, device=dev, cache=_timed_cache())
+
+
+def _drain_timed(svc) -> list:
+    """Drain ``svc`` step by step; returns each step's wall (s)."""
+    walls = []
+    while not svc.idle():
+        t = time.perf_counter()
+        svc.step()
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def _service_line(label: str, svc, walls: list) -> str:
+    import numpy as np
+
+    st = svc.stats()
+    n, steps = st["completed"], len(walls)
+    rest = sum(walls) - svc.cache.chunk_s - svc.admit_s - svc.retire_s
+    return (f"[smoke] service {label}: {n} tickets in {sum(walls):.3f} s "
+            f"({n / sum(walls):.2f} inst/s), {steps} steps, step wall mean "
+            f"{1e3 * np.mean(walls):.3f} ms median {1e3 * np.median(walls):.3f} ms; "
+            f"plane chunks {svc.cache.chunk_s:.3f} s ({st['supersteps']} supersteps, "
+            f"{1e3 * svc.cache.chunk_s / st['supersteps']:.3f} ms each); host work: "
+            f"admission {svc.admit_s:.3f} s ({1e3 * svc.admit_s / n:.3f} ms an admission), "
+            f"retirement {svc.retire_s:.3f} s ({1e3 * svc.retire_s / n:.3f} ms a ticket), "
+            f"the rest {rest:.3f} s ({1e3 * rest / steps:.3f} ms a step); occupancy "
+            f"{st['occupancy']:.4f}, wait mean {st['wait_s_mean']:.4f} s, residency mean "
+            f"{st['residency_s_mean']:.4f} s, evicted {st['evicted']}, planes {st['planes']}")
+
+
+def phase_service(dev, paper: dict, max_rounds: int) -> dict:
+    """The live service on the card: (a) lane churn of eight n = 300 tickets
+    through 4 lanes, (b) the paper's size in a 2-lane service with a
+    superstep deadline, (c) the asyncio front end ``repro_torch.launch.serve``
+    with its defaults.  Returns each path's launch counts."""
+    import numpy as np
+
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import counts
+    from repro_torch.launch import serve
+    from repro_torch.problems.sequential import solve_sequential_max_clique, verify_cover
+
+    out = {}
+    # (a) lane churn at the goldens' size: 8 tickets, 4 lanes, distinct priorities
+    smoke = json.loads(
+        (ROOT / "src" / "repro_torch" / "data" / "golden_smoke.json").read_text()
+    )
+    cfg = SolveConfig(**smoke["solve_kw"], service_lanes=4)
+    check(cfg.num_workers == 64, f"golden_smoke.json's config moved: {smoke['solve_kw']}")
+    graphs = [erdos_renyi(seed=s, **BATCH_GRAPH) for s in range(8)]
+    svc = _timed_service("vertex_cover", cfg, dev)
+    tickets = [svc.submit(g, priority=(3 * s) % 8) for s, g in enumerate(graphs)]
+    counts.reset()
+    walls = _drain_timed(svc)
+    launches = counts.snapshot()
+    results = [svc.result(t) for t in tickets]
+    check(record(results[0]) == smoke["result"],
+          f"service ticket of seed 0: {record(results[0])} != golden_smoke")
+    session = SolverSession(config=cfg, device=dev)
+    solo_s = 0.0
+    for s, (g, r) in enumerate(zip(graphs, results)):
+        check(verify_cover(g, r.best_sol), f"service seed {s}: cover does not verify")
+        t = time.perf_counter()
+        solo = session.solve(g)
+        solo_s += time.perf_counter() - t
+        got, want = ({**record(x), "overflow_count": x.stats.overflow_count}
+                     for x in (r, solo))
+        check(got == want, f"service seed {s}: {got} != its solo solve {want}")
+    check(svc.cache_stats()["planes"] == 1, f"the churn built {svc.cache_stats()} planes")
+    check(not launches.get("batched_degrees"), f"the service launched {launches}")
+    rounds = [r.rounds for r in results]
+    ran = _per_explore_round(launches, "vc_expand", cfg.steps_per_round, svc, rounds)
+    out["churn"] = launches
+    print(_service_line("lane churn, G(300, 4/299, seeds 0-7), 64 workers, 4 lanes",
+                        svc, walls))
+    print(f"[smoke] service lane churn: seed 0 == golden_smoke, seeds 0-7 == their "
+          f"solo solves (rounds {rounds}; the eight solo solves one after another "
+          f"{solo_s:.3f} s); launches={launches}: one per explore round of {ran} "
+          f"plane supersteps, for {sum(rounds)} ticket supersteps")
+
+    # (b) the paper's size: seed 0 to its optimum beside seed 1 evicted at 32
+    cfg = SolveConfig(num_workers=PAPER_WORKERS, max_rounds=max_rounds,
+                      chunk_rounds=min(16, max_rounds), service_lanes=2)
+    g0, g1 = (erdos_renyi(**{**PAPER_GRAPH, "seed": s}) for s in (0, 1))
+    svc = _timed_service("vertex_cover", cfg, dev)
+    t0, t1 = svc.submit(g0), svc.submit(g1, deadline=32)
+    counts.reset()
+    walls = _drain_timed(svc)
+    launches = counts.snapshot()
+    r0, r1 = svc.result(t0), svc.result(t1)
+    check(record(r0) == paper, f"service paper seed 0: {record(r0)} != phase 7's {paper}")
+    check(r1.stats.service.deadline_hit and r1.rounds == 32,
+          f"service paper seed 1: deadline_hit={r1.stats.service.deadline_hit} "
+          f"rounds={r1.rounds}, want an eviction at 32 supersteps")
+    capped = SolverSession(config=cfg.replace(max_rounds=32), device=dev).solve(g1)
+    check(record(r1) == record(capped),
+          f"service paper seed 1: {record(r1)} != its solo solve capped at 32 {record(capped)}")
+    check(verify_cover(g0, r0.best_sol) and verify_cover(g1, r1.best_sol),
+          "service paper size: a cover does not verify")
+    check(not launches.get("batched_degrees"), f"the service launched {launches}")
+    _per_explore_round(launches, "vc_expand", cfg.steps_per_round, svc, [r0.rounds, r1.rounds])
+    out["paper"] = launches
+    print(_service_line("paper size, G(600, 4/599, seeds 0, 1), 128 workers, 2 lanes",
+                        svc, walls))
+    print(f"[smoke] service paper size: seed 0 == phase 7 (best {r0.best_size}, "
+          f"{r0.rounds} supersteps); seed 1 evicted at {r1.rounds} supersteps, best "
+          f"{r1.best_size} == its capped solo solve; launches={launches}")
+
+    # (c) the asyncio front end, its defaults on the card
+    argv = ["--device", str(dev)]
+    args = serve.parse_args(argv)
+    graphs = [g for _, g in serve.build_requests(args, np.random.default_rng(args.seed))]
+    counts.reset()
+    res = serve.main(argv)
+    launches = counts.snapshot()
+    want = [solve_sequential_max_clique(g)[0] for g in graphs]
+    check(res["best_sizes"] == want and len(want) == args.requests,
+          f"launch.serve answered {res['best_sizes']}, the sequential reference {want}")
+    check(launches.get("clique_expand", 0) > 0 and not launches.get("batched_expand_stats"),
+          f"launch.serve launched {launches}: want clique_expand and no "
+          f"batched_expand_stats")
+    out["serve"] = launches
+    print(f"[smoke] service asyncio front end (launch.serve defaults: {args.requests} "
+          f"max-clique requests, n {args.n_min}-{args.n}, {args.lanes} lanes, "
+          f"{args.workers} workers): every size == the sequential reference; "
+          f"a smoke reading at n <= {args.n}, not the service's latency: "
+          f"p50 {1e3 * res['latency_p50_s']:.3f} ms p99 "
+          f"{1e3 * res['latency_p99_s']:.3f} ms, {res['instances_per_s']:.3f} inst/s, "
+          f"{res['steps']} steps, occupancy {res['occupancy']:.4f}; launches={launches}")
+    return out
 
 
 # -- the LM serving path (phases 8-10) ------------------------------------------
@@ -1327,7 +1545,8 @@ def main() -> None:
     solo_n300 = timed("goldens", phase_goldens, dev)
     clique = timed("clique_mis", phase_clique_goldens, dev)
     timed("batch", phase_batch, dev, solo_n300)
-    launches = timed("paper", phase_paper, dev, args.paper_max_rounds)
+    launches, paper = timed("paper", phase_paper, dev, args.paper_max_rounds)
+    service = timed("service", phase_service, dev, paper, args.paper_max_rounds)
     # the panel kernels serve the composed expansion; the fused ones the
     # solver's main paths (vertex cover's at the paper's size, max clique's)
     for name in ("batched_degrees", "batched_expand_stats"):
@@ -1339,6 +1558,12 @@ def main() -> None:
     kernels["clique_expand"]["path"] = "max clique exact solve, phase 4"
     for name in ("batched_degrees", "batched_expand_stats", "vc_expand", "clique_expand"):
         check(kernels[name]["launches"] > 0, f"its path launched no {name} kernel")
+    # the live service is the fused kernels' second path
+    kernels["vc_expand"]["service_launches"] = sum(
+        service[p].get("vc_expand", 0) for p in ("churn", "paper"))
+    kernels["vc_expand"]["service_path"] = "live service: lane churn and paper size, phase 11"
+    kernels["clique_expand"]["service_launches"] = service["serve"].get("clique_expand", 0)
+    kernels["clique_expand"]["service_path"] = "asyncio front end launch.serve, phase 11"
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

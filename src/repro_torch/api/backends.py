@@ -49,6 +49,8 @@ _NOT_PORTED = {
     "use_mesh": "queue 1, item 13 (multi-device path)",
     "mesh": "queue 1, item 13 (multi-device path)",
     "injector": "queue 1, item 11 (fault wiring)",
+    "SolveService.checkpoint": "queue 1, item 9 (checkpoint/resume)",
+    "SolveService.restore": "queue 1, item 9 (checkpoint/resume)",
 }
 
 
@@ -381,3 +383,11 @@ def get_backend(name) -> Backend:
             f"(aliases: {', '.join(sorted(BACKEND_ALIASES))})"
         )
     return BACKENDS[key]
+
+
+def config_from_legacy(policy_priority: bool = True, **kw) -> SolveConfig:
+    """Map the legacy kwargs surface (the ``policy_priority`` bool of the
+    goldens' ``solve_kw``) onto :class:`SolveConfig`."""
+    return SolveConfig(
+        policy=("priority" if policy_priority else "random"), **kw
+    )

@@ -1,10 +1,10 @@
 """The result schema of the port's backends.
 
 The port of ``repro/api/result.py``'s ``SolveStats``/``SolveResult``,
-``LaneStats``/``BatchSolveResult`` and their converters, holding the
-counters the ported backends write.  The JAX package's deprecated dict-style
-access to ``stats`` is not carried over: read attributes
-(``r.stats.overflow_count``).
+``ServiceStats``, ``LaneStats``/``BatchSolveResult`` and their converters,
+holding the counters the ported backends write.  The JAX package's
+deprecated dict-style access to ``stats`` is not carried over: read
+attributes (``r.stats.overflow_count``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,29 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class ServiceStats:
+    """The service envelope around one completed ticket (the spmd service
+    only): which lane and plane solved it, its queue wait and lane
+    residency (wall seconds on the service's clock), and whether its
+    superstep (``deadline_hit``) or wall-clock (``wall_deadline_hit``)
+    deadline evicted it with an anytime result.  The fault ledger
+    (``faults_injected``, ``faults_recovered``, ``lanes_quarantined``,
+    ``retries``) is the JAX package's; it stays 0 until the port has an
+    injector and the self-healing that answers it (ROADMAP item 11)."""
+
+    lane: int = -1
+    plane: str = ""
+    wait_s: float = 0.0
+    residency_s: float = 0.0
+    deadline_hit: bool = False
+    wall_deadline_hit: bool = False
+    faults_injected: int = 0
+    faults_recovered: int = 0
+    lanes_quarantined: int = 0
+    retries: int = 0
 
 
 @dataclasses.dataclass
@@ -35,6 +58,8 @@ class SolveStats:
     pruned: int = 0
     solutions: int = 0
     max_depth: int = 0
+    # -- service envelope (None outside SolveService) -------------------------
+    service: Optional[ServiceStats] = None
 
 
 @dataclasses.dataclass

@@ -8,9 +8,13 @@ for another: ``device=None`` means ``"cuda"``, and a session on CUDA raises
 ``RuntimeError`` when CUDA is absent instead of running on the CPU.  The CPU
 path (``device="cpu"``) runs the kernels' plain versions; the tests use it.
 
-Asynchronous admission (``submit``/``poll``/``flush``) needs the serving
-batcher and the live service, which are not ported yet: those verbs raise
-``NotImplementedError`` naming their ROADMAP item.
+Asynchronous admission: ``submit(g) -> ticket`` queues into the serving
+:class:`~repro_torch.serving.balancer.SolveBatcher`, ``poll()`` solves every
+full ``batch_size`` plane and ``flush()`` the rest, and ``result(ticket)``
+pops a solved ticket.  ``serve()`` returns the continuous-batching
+:class:`~repro_torch.api.service.SolveService` on the session's device and
+cache; :func:`solve_stream_session` drives a whole stream through one
+service per problem.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ class SolverSession:
     ...                         config=SolveConfig(num_workers=128))
     >>> session.solve(g).best_size
     >>> session.solve_many(graphs).results
+    >>> t = session.submit(g); session.flush(); session.result(t)
 
     ``problem`` is a registry name or spec; ``backend`` is ``spmd`` or
     ``sequential``.  Keyword overrides are applied on top of ``config``:
@@ -69,6 +74,8 @@ class SolverSession:
             cfg = cfg.replace(**overrides)
         self.config = cfg
         self.cache = cache if cache is not None else PlaneCache()
+        self._batcher = None  # lazy serving.balancer.SolveBatcher
+        self._results: dict = {}  # ticket -> SolveResult
 
     def solve(self, g, **backend_kw) -> SolveResult:
         """Solve one instance; ``backend_kw`` passes backend-specific extras
@@ -86,24 +93,148 @@ class SolverSession:
             device=self.device, **backend_kw,
         )
 
-    # -- asynchronous admission: not ported yet --------------------------------
+    # -- asynchronous admission (the serving front) ----------------------------
 
-    @staticmethod
-    def _refuse_admission(verb: str):
-        raise NotImplementedError(
-            f"SolverSession.{verb} is not ported to repro_torch yet (ROADMAP "
-            f"queue 1, item 8: the live service; item 12: the serving batcher)"
+    def submit(self, g) -> int:
+        """Queue one instance for batched solving; returns its ticket.
+
+        Tickets solve when a full ``config.batch_size`` plane accumulates
+        (``poll``) or on ``flush()``; results are kept until ``result`` is
+        called (which pops them).
+        """
+        if self._batcher is None:
+            from repro_torch.serving.balancer import SolveBatcher
+
+            self._batcher = SolveBatcher(self.config.batch_size)
+        return self._batcher.submit(g, self.problem.name)
+
+    def poll(self) -> list:
+        """Solve every currently FULL batch; returns the tickets solved."""
+        if self._batcher is None:
+            return []
+        return self._run_batches(self._batcher.ready_batches())
+
+    def flush(self) -> list:
+        """Solve everything still queued (full and partial batches);
+        returns the tickets solved."""
+        if self._batcher is None:
+            return []
+        return self._run_batches(self._batcher.flush())
+
+    def result(self, ticket: int) -> SolveResult:
+        """Pop a solved ticket's result (KeyError if unknown or unsolved:
+        call ``poll``/``flush`` first)."""
+        return self._results.pop(ticket)
+
+    def pending(self) -> int:
+        """Tickets submitted but not yet solved."""
+        if self._batcher is None:
+            return 0
+        return len(self._batcher.graphs)
+
+    def _run_batches(self, batches) -> list:
+        solved = []
+        for tickets in batches:
+            gs = self._batcher.take(tickets)
+            batch = self.solve_many(gs)
+            for t, r in zip(tickets, batch.results):
+                self._results[t] = r
+            solved.extend(tickets)
+        return solved
+
+    # -- the continuous-batching service ---------------------------------------
+
+    def serve(self, *, injector=None, **config_overrides):
+        """A :class:`~repro_torch.api.service.SolveService` over this
+        session's (problem, config, cache, device): a live plane whose freed
+        lanes re-admit queued instances continuously, instead of the fixed
+        ``batch_size`` planes behind ``submit``/``poll``/``flush``.
+
+        >>> svc = session.serve(service_lanes=8)
+        >>> t = svc.submit(g); svc.drain(); svc.result(t)
+
+        spmd backend only; ``injector`` is refused (ROADMAP queue 1, item 11).
+        """
+        from repro_torch.api.service import SolveService
+
+        if self.backend.name != "spmd":
+            raise ValueError(
+                f"serve() needs the spmd backend (live batched plane); "
+                f"this session uses {self.backend.name!r}"
+            )
+        cfg = self.config
+        if config_overrides:
+            cfg = cfg.replace(**config_overrides)
+        return SolveService(
+            self.problem, cfg, cache=self.cache, injector=injector,
+            device=self.device,
         )
-
-    def submit(self, g, **kw):
-        self._refuse_admission("submit")
-
-    def poll(self):
-        self._refuse_admission("poll")
-
-    def flush(self):
-        self._refuse_admission("flush")
 
     def cache_stats(self) -> dict:
         """Plane-cache accounting (see :class:`~repro_torch.api.cache.CacheStats`)."""
         return self.cache.stats().to_dict()
+
+
+def solve_stream_session(
+    graphs,
+    batch_size: int,
+    *,
+    problem=DEFAULT_PROBLEM,
+    config: Optional[SolveConfig] = None,
+    cache: Optional[PlaneCache] = None,
+    backend="spmd",
+    device=None,
+) -> list:
+    """Session-backed stream solver: one continuous
+    :class:`~repro_torch.api.service.SolveService` per problem in the
+    stream, ALL sharing one :class:`PlaneCache`, on ``device`` (None: the
+    card).  A lane freed by an easy instance re-admits the next queued one
+    mid-flight instead of idling until its whole batch drains.
+    ``batch_size`` becomes the service's lane count.  Returns per-instance
+    :class:`SolveResult` in submission order.
+
+    Non-spmd backends have no live batched plane; they fall back to the
+    fixed-batch ``submit``/``flush`` path with identical results.
+
+    This is what :func:`repro_torch.serving.balancer.solve_stream` drives
+    when no explicit solver is injected.
+    """
+    graphs = list(graphs)
+    probs = [problem] * len(graphs) if isinstance(problem, str) else list(problem)
+    if len(probs) != len(graphs):
+        raise ValueError("need one problem, or one per instance")
+    cache = cache if cache is not None else PlaneCache()
+    cfg = config if config is not None else SolveConfig()
+    if get_backend(backend).name != "spmd":
+        sessions: dict = {}
+        tickets = []
+        for g, p in zip(graphs, probs):
+            name = get_problem(p).name
+            if name not in sessions:
+                sessions[name] = SolverSession(
+                    problem=name,
+                    backend=backend,
+                    config=cfg.replace(batch_size=batch_size),
+                    cache=cache,
+                    device=device,
+                )
+            tickets.append((name, sessions[name].submit(g)))
+        for s in sessions.values():
+            s.flush()
+        return [sessions[name].result(t) for name, t in tickets]
+
+    from repro_torch.api.service import SolveService
+
+    services: dict = {}
+    tickets = []
+    for g, p in zip(graphs, probs):
+        name = get_problem(p).name
+        if name not in services:
+            services[name] = SolveService(
+                name, cfg.replace(service_lanes=batch_size), cache=cache,
+                device=device,
+            )
+        tickets.append((name, services[name].submit(g)))
+    for svc in services.values():
+        svc.drain()
+    return [services[name].result(t) for name, t in tickets]

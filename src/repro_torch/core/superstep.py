@@ -460,8 +460,11 @@ def build_plane_fn(problem: BranchingProblem, **knobs):
 # A lane is one instance slot of the batched plane: worker-state leaves
 # (B, P, ...) plus per-lane control values.  ``solve_many`` steps the plane
 # one chunk at a time (:func:`step_lanes`) and compacts finished lanes away
-# (:func:`slice_lanes`); admitting new instances into freed lanes is the live
-# service's (ROADMAP queue 1, item 8).
+# (:func:`slice_lanes`).  The live service (``repro_torch.api.service``)
+# never compacts: it keeps one plane of fixed lanes, admits an instance into
+# a vacant lane (:func:`lane_swap_in`) and frees it again
+# (:func:`lane_retire`).  Those verbs write the lane's slice in place, so a
+# lane index stays valid for the plane's whole life.
 
 
 class LaneState(NamedTuple):
@@ -482,6 +485,59 @@ class LaneState(NamedTuple):
     @property
     def num_lanes(self) -> int:
         return self.done.shape[0]
+
+    def occupied(self) -> np.ndarray:
+        """(B,) host bool: lanes holding a (possibly finished) instance."""
+        return np.asarray(self.tag) >= 0
+
+
+def make_vacant_lanes(
+    num_lanes: int, num_workers: int, capacity: int, W: int, device
+) -> LaneState:
+    """An all-vacant live plane on ``device``: every lane holds a blank
+    worker state (best 0) and is a frozen no-op (``done``) until an
+    instance is swapped in.  Every leaf is its own contiguous tensor, so
+    the lane verbs can write into it."""
+    from repro_torch.core.engine import blank_state_flat
+
+    one = blank_state_flat(num_workers, capacity, W, 0)
+    flat = {
+        k: np.ascontiguousarray(np.broadcast_to(v[None], (num_lanes, *v.shape)))
+        for k, v in one.items()
+    }
+    return LaneState(
+        worker=worker_state_from_flat(flat, device),
+        done=torch.ones((num_lanes,), dtype=torch.bool, device=device),
+        tag=np.full((num_lanes,), -1, np.int32),
+        rounds=torch.zeros((num_lanes,), dtype=torch.int32, device=device),
+    )
+
+
+def lane_swap_in(
+    lanes: LaneState, lane: int, worker: WorkerState, tag: int
+) -> LaneState:
+    """Admit a startup-scattered instance into ``lane``, in place; returns
+    ``lanes``.
+
+    ``worker`` is a solo (P, ...) state of one lane's shapes.  Every leaf of
+    the lane is overwritten, the lane un-freezes (``done`` False), its round
+    counter resets and its tag records the occupant.  Pure data writes: the
+    plane function is reused as it is."""
+    map_state(lambda full, one: full[lane].copy_(one), lanes.worker, worker)
+    lanes.done[lane] = False
+    lanes.rounds[lane] = 0
+    lanes.tag[lane] = tag
+    return lanes
+
+
+def lane_retire(lanes: LaneState, lane: int) -> LaneState:
+    """Mark ``lane`` vacant, in place (after its result was collected, or on
+    eviction); returns ``lanes``.  It is a frozen no-op until the next
+    swap-in, and its stale worker state is inert: admission overwrites every
+    leaf."""
+    lanes.done[lane] = True
+    lanes.tag[lane] = -1
+    return lanes
 
 
 def slice_lanes(lanes: LaneState, sel) -> LaneState:

@@ -295,6 +295,38 @@ def slice_instances(data: ProblemData, sel) -> ProblemData:
     )
 
 
+def make_blank_batch_data(num_lanes: int, n_max: int, W: int, device) -> ProblemData:
+    """An all-vacant batched :class:`ProblemData` for a live plane: zero
+    adjacency and n = 0 per lane (inert under the frozen-lane select;
+    admission overwrites a lane with :func:`write_instance`)."""
+    return ProblemData(
+        n=np.zeros((num_lanes,), np.int32),
+        adj=torch.zeros((num_lanes, n_max, W), dtype=torch.int32, device=device),
+    )
+
+
+def write_instance(
+    data: ProblemData, lane: int, problem: BranchingProblem, g
+) -> ProblemData:
+    """Write one instance into lane ``lane`` of a batched ``data``, in
+    place, and return ``data`` (live-plane admission).  ``n`` is set on the
+    host; rows past ``g.n`` are zeroed on the device (isolated, never-in-mask
+    vertices: :func:`make_batch_data`'s padding rule, so the admitted
+    instance's trace is bit-identical to its solo solve).  Shapes never
+    change, so the plane is reused as it is."""
+    n_max, W = data.adj.shape[1], data.adj.shape[2]
+    if g.n > n_max or g.W > W:
+        raise ValueError(
+            f"instance (n={g.n}, W={g.W}) exceeds the live plane's "
+            f"(n_max={n_max}, W={W}) packing"
+        )
+    adj = np.zeros((n_max, W), np.uint32)
+    adj[: g.n, : g.W] = np.asarray(problem.host_adj(g), np.uint32)
+    data.n[lane] = g.n
+    data.adj[lane].copy_(torch.from_numpy(adj.view(np.int32)))
+    return data
+
+
 def expand_frontier(
     problem: BranchingProblem,
     g,

@@ -4,7 +4,8 @@
   ``repro``/``repro.*`` module (checked in a fresh interpreter);
 * no source file under ``src/repro_torch``, and not ``chip_smoke.py``,
   imports them (AST scan);
-* ``SolverSession()`` with CUDA absent raises instead of running on the CPU.
+* ``SolverSession()`` with CUDA absent raises instead of running on the CPU;
+* what the port does not carry yet refuses with its ROADMAP item.
 """
 
 import ast
@@ -64,6 +65,9 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.models.registry",
         "repro_torch.models.convert",
         "repro_torch.launch.serve_lm",
+        "repro_torch.serving.balancer",
+        "repro_torch.api.service",
+        "repro_torch.launch.serve",
     ):
         assert name in report["modules"]
 
@@ -120,7 +124,19 @@ def test_unported_features_refuse():
                             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
         session.solve_many([g, g])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        SolverSession(problem="max_clique", device="cpu").submit(g)
+    # the live service: durability, spill and fault injection wait for items 9-11
+    from repro_torch.api import SolveService
+
+    svc = SolveService("max_clique", SolveConfig(num_workers=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        svc.checkpoint("ckpt")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        SolveService.restore("ckpt")
+    for kw, item in ((dict(checkpoint_dir="ckpt"), 9), (dict(frontier_spill=True), 10)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
+            SolveService("max_clique", SolveConfig(num_workers=2, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
+        SolveService("max_clique", SolveConfig(num_workers=2), injector=object(),
+                     device="cpu")
     with pytest.raises(ValueError, match="ROADMAP queue 1, item 12"):
         SolverSession(backend="protocol_sim", device="cpu")
