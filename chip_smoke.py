@@ -88,7 +88,23 @@ Phases (any failed check raises, so the exit code is not 0):
    retirement and the rest of the service's host work), occupancy, wait,
    residency, instances/s and the front end's p50/p99 latency (a smoke
    reading at n <= 26: the service's latency at the paper's size is
-   measured by ``launch.serve`` itself, PERF.md section 5).
+   measured by ``launch.serve`` itself, PERF.md section 5);
+12. durability (run after phases 4, 6, 7 and 11; checkpoints under a
+   ``tempfile.mkdtemp()`` directory, removed at the end) — (a) phase 7's
+   solve with a checkpoint every chunk equals phase 7's record, and
+   ``SolverSession.resume`` from its first, a middle and its newest
+   checkpoint each equals it too, launching exactly one ``vc_expand`` per
+   explore round run after the checkpoint and nothing else; each
+   checkpoint's bytes, write time (the copy to the host, CRC32, ``savez``,
+   manifest and rename) and load time are printed beside a chunk's wall;
+   (b) phase 6's batch (a chunk a superstep) resumed mid-bucket; (c) phase
+   4's max-clique solve resumed mid-solve, on ``clique_expand``; (d) phase
+   11's paper-size service checkpointed after its first step, both lanes
+   live, restored into a fresh service and drained: seed 0 equals phase 7,
+   seed 1 is evicted at 32 equal to its capped solo solve; (e) the JAX
+   package's checkpoint ``src/repro_torch/data/ckpt_jax_vc`` resumed to
+   its record.  The kernels line gives the resumes' launches as
+   ``resume_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -104,8 +120,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -650,9 +669,10 @@ def phase_clique_goldens(dev) -> dict:
     return out["max_clique"]
 
 
-def phase_batch(dev, solo_n300: dict) -> None:
+def phase_batch(dev, solo_n300: dict) -> dict:
     """The batched plane: vertex cover on two n = 300 instances, a batch of
-    two copies, and clique_smoke's max-clique configuration."""
+    two copies, and clique_smoke's max-clique configuration.  Returns the
+    record of instance 1 (seed 1)."""
     from repro_torch.api import SolveConfig, SolverSession
     from repro_torch.graphs.generators import erdos_renyi
     from repro_torch.kernels import counts
@@ -727,6 +747,7 @@ def phase_batch(dev, solo_n300: dict) -> None:
     print(f"[smoke] clique_smoke on the card: sizes={sizes} (verified against the "
           f"sequential reference), launches={launches}: one per explore round "
           f"for the batch of {len(graphs)}")
+    return record(r1)
 
 
 def phase_paper(dev, max_rounds: int) -> dict:
@@ -875,7 +896,8 @@ def phase_service(dev, paper: dict, max_rounds: int) -> dict:
     """The live service on the card: (a) lane churn of eight n = 300 tickets
     through 4 lanes, (b) the paper's size in a 2-lane service with a
     superstep deadline, (c) the asyncio front end ``repro_torch.launch.serve``
-    with its defaults.  Returns each path's launch counts."""
+    with its defaults.  Returns each path's launch counts, and under
+    ``"capped"`` the record of seed 1's solo solve capped at 32 supersteps."""
     import numpy as np
 
     from repro_torch.api import SolveConfig, SolverSession
@@ -939,6 +961,7 @@ def phase_service(dev, paper: dict, max_rounds: int) -> dict:
     capped = SolverSession(config=cfg.replace(max_rounds=32), device=dev).solve(g1)
     check(record(r1) == record(capped),
           f"service paper seed 1: {record(r1)} != its solo solve capped at 32 {record(capped)}")
+    out["capped"] = record(capped)
     check(verify_cover(g0, r0.best_sol) and verify_cover(g1, r1.best_sol),
           "service paper size: a cover does not verify")
     check(not launches.get("batched_degrees"), f"the service launched {launches}")
@@ -971,6 +994,237 @@ def phase_service(dev, paper: dict, max_rounds: int) -> dict:
           f"p50 {1e3 * res['latency_p50_s']:.3f} ms p99 "
           f"{1e3 * res['latency_p99_s']:.3f} ms, {res['instances_per_s']:.3f} inst/s, "
           f"{res['steps']} steps, occupancy {res['occupancy']:.4f}; launches={launches}")
+    return out
+
+
+# -- durability on the card (phase 12) -----------------------------------------
+
+
+@contextlib.contextmanager
+def _timed_calls(spans: dict, targets: dict):
+    """Wrap ``getattr(owner, attr)`` for each ``name: (owner, attr)`` of
+    ``targets`` so each call appends its wall (s) to ``spans[name]``; the
+    originals are put back on exit."""
+    saved = {name: getattr(owner, attr) for name, (owner, attr) in targets.items()}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans.setdefault(name, []).append(time.perf_counter() - t)
+        return timed
+
+    for name, (owner, attr) in targets.items():
+        setattr(owner, attr, wrap(name, saved[name]))
+    try:
+        yield spans
+    finally:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[name])
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def _step_dirs(d) -> list:
+    return sorted((p for p in Path(d).iterdir() if p.name.startswith("step_")),
+                  key=lambda p: int(p.name[5:]))
+
+
+def _resume_checked(label: str, step_dir, want: dict, kernel: str, dev,
+                    extra=None) -> tuple:
+    """Resume ``step_dir`` on the card; check its record against ``want``
+    and that it launched exactly one ``kernel`` per explore round it ran
+    after the checkpoint and nothing else.  Returns (launches, result)."""
+    from repro_torch.api import SolverSession
+    from repro_torch.checkpoint.solve import SolveCheckpoint
+    from repro_torch.kernels import counts
+
+    ck = SolveCheckpoint.load(str(step_dir))
+    spr = ck.config["steps_per_round"]
+    counts.reset()
+    t = time.perf_counter()
+    r = SolverSession.resume(str(step_dir), device=dev, checkpoint_dir=None)
+    wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    results = r.results if hasattr(r, "results") else [r]
+    got = [{**record(x), **(extra(x) if extra else {})} for x in results]
+    check(got == want, f"{label}: resumed {got} != uninterrupted {want}")
+    ran = max(x.rounds for x in results) - ck.rounds
+    check(launches == {kernel: ran * spr},
+          f"{label}: the resume from {Path(step_dir).name} launched {launches}: "
+          f"want {ran * spr} {kernel}, one per explore round of its {ran} "
+          f"supersteps, and nothing else")
+    print(f"[smoke] durability {label}: resumed from {Path(step_dir).name} "
+          f"(at superstep {ck.rounds}) == the uninterrupted run; {ran} supersteps "
+          f"in {wall:.3f} s (loads included); launches={launches}")
+    return launches, r
+
+
+def phase_durability(dev, paper: dict, batch_seed1: dict, capped_seed1: dict,
+                     max_rounds: int) -> dict:
+    """Checkpoint and resume on the card: (a) the paper-size VC solve with a
+    checkpoint every chunk, resumed from its first, a middle and its newest
+    checkpoint; (b) phase 6's batch resumed mid-bucket; (c) phase 4's exact
+    max-clique solve resumed from a middle step; (d) phase 11's paper-size
+    service checkpointed after its first step and restored into a fresh
+    service; (e) the JAX package's checkpoint ``src/repro_torch/data/
+    ckpt_jax_vc``.  Returns the resumes' launch counts per kernel."""
+    import torch
+
+    from repro_torch.api import PlaneCache, SolveConfig, SolverSession, SolveService
+    from repro_torch.api import backends
+    from repro_torch.checkpoint import store
+    from repro_torch.checkpoint.solve import SolveCheckpoint
+    from repro_torch.core.superstep import worker_state_from_flat
+    from repro_torch.graphs import generators
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import counts
+
+    import numpy as np
+
+    out = {"vc_expand": 0, "clique_expand": 0}
+    root = tempfile.mkdtemp(prefix="smoke_ckpt_")
+    try:
+        # (a) the main path at the paper's size, a checkpoint every chunk
+        g = erdos_renyi(**PAPER_GRAPH)
+        cfg = SolveConfig(num_workers=PAPER_WORKERS, max_rounds=max_rounds,
+                          chunk_rounds=min(16, max_rounds), checkpoint_every=1)
+        d = os.path.join(root, "paper")
+        spans: dict = {}
+        with _timed_calls(spans, {
+            "write": (backends, "_write_solo_checkpoint"),
+            "copy": (backends, "worker_state_to_flat"),
+            "crc": (store, "array_checksum"),
+            "savez": (np, "savez"),
+        }):
+            t = time.perf_counter()
+            r = SolverSession(config=cfg, device=dev).solve(g, checkpoint_dir=d)
+            wall = time.perf_counter() - t
+        check(record(r) == paper, f"durable paper solve: {record(r)} != phase 7's {paper}")
+        steps = _step_dirs(d)
+        n_ck = len(steps)
+        check(r.stats.checkpoints_written == n_ck > 2,
+              f"durable paper solve wrote {r.stats.checkpoints_written} checkpoints, "
+              f"{n_ck} on disk: want one a chunk but the last")
+        chunks = -(-r.rounds // cfg.chunk_rounds)
+        chunk_s = (wall - sum(spans["write"])) / chunks
+        per = len(spans["crc"]) // n_ck  # one CRC32 per array of a checkpoint
+        crc_per = [sum(spans["crc"][i * per:(i + 1) * per]) for i in range(n_ck)]
+        print(f"[smoke] durability paper size: {r.rounds} supersteps in {wall:.3f} s "
+              f"with {n_ck} checkpoints (one a chunk of {cfg.chunk_rounds}; "
+              f"a chunk's wall without its write {1e3 * chunk_s:.3f} ms); == phase 7")
+        for i, step_dir in enumerate(steps):
+            t = time.perf_counter()
+            ck = SolveCheckpoint.load(str(step_dir))
+            load_s = time.perf_counter() - t
+            t = time.perf_counter()
+            worker_state_from_flat(ck.arrays, dev)
+            torch.cuda.synchronize(dev)
+            h2d_s = time.perf_counter() - t
+            write = spans["write"][i]
+            rest = write - spans["copy"][i] - crc_per[i] - spans["savez"][i]
+            print(f"[smoke]   {step_dir.name}: {_dir_bytes(step_dir)} bytes; write "
+                  f"{1e3 * write:.3f} ms (copy to host {1e3 * spans['copy'][i]:.3f}, "
+                  f"CRC32 {1e3 * crc_per[i]:.3f}, savez {1e3 * spans['savez'][i]:.3f}, "
+                  f"manifest and rename {1e3 * rest:.3f}); load {1e3 * load_s:.3f} ms "
+                  f"+ to the card {1e3 * h2d_s:.3f} ms; a chunk {1e3 * chunk_s:.3f} ms")
+        for step_dir in (steps[0], steps[len(steps) // 2], steps[-1]):
+            launches, _ = _resume_checked("paper size", step_dir, [paper], "vc_expand", dev)
+            out["vc_expand"] += launches.get("vc_expand", 0)
+
+        # (b) the batched plane: phase 6's batch, resumed mid-bucket (a chunk
+        # a superstep: the batch is done in a few supersteps)
+        smoke = json.loads(
+            (ROOT / "src" / "repro_torch" / "data" / "golden_smoke.json").read_text()
+        )
+        cfg = SolveConfig(**smoke["solve_kw"], chunk_rounds=1, checkpoint_every=1)
+        d = os.path.join(root, "batch")
+        g0, g1 = (erdos_renyi(seed=s, **BATCH_GRAPH) for s in (0, 1))
+        batch = SolverSession(config=cfg, device=dev).solve_many([g0, g1], checkpoint_dir=d)
+        want = [smoke["result"], batch_seed1]
+        check([record(x) for x in batch.results] == want,
+              "durable batch: results differ from phase 6's")
+        steps = _step_dirs(d)
+        check(len(steps) > 2, f"durable batch wrote {len(steps)} checkpoints")
+        launches, _ = _resume_checked("batch (solve_many)", steps[len(steps) // 2], want,
+                                      "vc_expand", dev)
+        out["vc_expand"] += launches.get("vc_expand", 0)
+
+        # (c) max clique: phase 4's exact solve, resumed from a middle step
+        golden = json.loads(
+            (ROOT / "src" / "repro_torch" / "data" / "golden_clique.json").read_text()
+        )["max_clique"]
+        spec = golden["graph"]
+        g = getattr(generators, spec["generator"])(
+            **{k: v for k, v in spec.items() if k != "generator"})
+        cfg = SolveConfig(**golden["solve_kw"], checkpoint_every=1)
+        d = os.path.join(root, "clique")
+        r = SolverSession(problem="max_clique", config=cfg, device=dev).solve(
+            g, checkpoint_dir=d)
+        with_overflow = lambda x: {"overflow_count": int(x.stats.overflow_count)}  # noqa: E731
+        check({**record(r), **with_overflow(r)} == golden["result"],
+              "durable max clique: differs from golden_clique.json")
+        steps = _step_dirs(d)
+        check(len(steps) >= 1, "durable max clique wrote no checkpoint")
+        launches, _ = _resume_checked("max clique", steps[len(steps) // 2],
+                                      [golden["result"]], "clique_expand", dev,
+                                      extra=with_overflow)
+        out["clique_expand"] += launches.get("clique_expand", 0)
+
+        # (d) the live service at the paper's size, checkpointed while both
+        # lanes are live, restored into a fresh service and drained
+        cfg = SolveConfig(num_workers=PAPER_WORKERS, max_rounds=max_rounds,
+                          chunk_rounds=min(16, max_rounds), service_lanes=2)
+        g0, g1 = (erdos_renyi(**{**PAPER_GRAPH, "seed": s}) for s in (0, 1))
+        svc = SolveService("vertex_cover", cfg, device=dev)
+        t0, t1 = svc.submit(g0), svc.submit(g1, deadline=32)
+        svc.step()
+        check(svc.status()["planes"] and svc.tickets() == [t0, t1]
+              and not svc.ready(t0) and not svc.ready(t1),
+              f"service: both lanes must be live after the first step: {svc.status()}")
+        d = os.path.join(root, "service")
+        t = time.perf_counter()
+        path = svc.checkpoint(d)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = SolveService.restore(d, cache=PlaneCache(), device=dev)
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t
+        before = back.stats()["supersteps"]
+        counts.reset()
+        t = time.perf_counter()
+        back.drain()
+        drain_s = time.perf_counter() - t
+        launches = counts.snapshot()
+        r0, r1 = back.result(t0), back.result(t1)
+        check(record(r0) == paper, f"restored service seed 0: {record(r0)} != phase 7's")
+        check(r1.stats.service.deadline_hit and r1.rounds == 32 and record(r1) == capped_seed1,
+              f"restored service seed 1: {record(r1)}, deadline_hit="
+              f"{r1.stats.service.deadline_hit}: want an eviction at 32 supersteps "
+              f"equal to its capped solo solve")
+        ran = back.stats()["supersteps"] - before
+        check(launches == {"vc_expand": cfg.steps_per_round * ran},
+              f"restored service launched {launches} in {ran} plane supersteps: want "
+              f"one vc_expand per explore round and nothing else")
+        out["vc_expand"] += launches.get("vc_expand", 0)
+        print(f"[smoke] durability service (paper size, 2 lanes of {PAPER_WORKERS}): "
+              f"checkpoint after step 1 {_dir_bytes(path)} bytes in {1e3 * write_s:.3f} ms, "
+              f"restore {1e3 * restore_s:.3f} ms; drained {ran} plane supersteps in "
+              f"{drain_s:.3f} s: seed 0 == phase 7, seed 1 evicted at 32 == its capped "
+              f"solo solve; launches={launches}")
+
+        # (e) a checkpoint written by the JAX package, resumed on the card
+        fixture = ROOT / "src" / "repro_torch" / "data" / "ckpt_jax_vc"
+        doc = json.loads((fixture / "record.json").read_text())
+        launches, _ = _resume_checked("JAX-written checkpoint", fixture / f"step_{doc['step']}",
+                                      [doc["result"]], "vc_expand", dev)
+        out["vc_expand"] += launches.get("vc_expand", 0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -1544,9 +1798,11 @@ def main() -> None:
     composed = timed("composed", phase_composed, dev)
     solo_n300 = timed("goldens", phase_goldens, dev)
     clique = timed("clique_mis", phase_clique_goldens, dev)
-    timed("batch", phase_batch, dev, solo_n300)
+    batch_seed1 = timed("batch", phase_batch, dev, solo_n300)
     launches, paper = timed("paper", phase_paper, dev, args.paper_max_rounds)
     service = timed("service", phase_service, dev, paper, args.paper_max_rounds)
+    resumed = timed("durability", phase_durability, dev, paper, batch_seed1,
+                    service["capped"], args.paper_max_rounds)
     # the panel kernels serve the composed expansion; the fused ones the
     # solver's main paths (vertex cover's at the paper's size, max clique's)
     for name in ("batched_degrees", "batched_expand_stats"):
@@ -1564,6 +1820,15 @@ def main() -> None:
     kernels["vc_expand"]["service_path"] = "live service: lane churn and paper size, phase 11"
     kernels["clique_expand"]["service_launches"] = service["serve"].get("clique_expand", 0)
     kernels["clique_expand"]["service_path"] = "asyncio front end launch.serve, phase 11"
+    # and the resumes of checkpoints on the card their third
+    kernels["vc_expand"]["resume_launches"] = resumed["vc_expand"]
+    kernels["vc_expand"]["resume_path"] = (
+        "resumed solves: paper size from 3 checkpoints, the batch, the restored "
+        "paper-size service, the JAX-written checkpoint, phase 12")
+    kernels["clique_expand"]["resume_launches"] = resumed["clique_expand"]
+    kernels["clique_expand"]["resume_path"] = "max clique exact solve resumed mid-solve, phase 12"
+    for name in ("vc_expand", "clique_expand"):
+        check(kernels[name]["resume_launches"] > 0, f"no resume launched {name}")
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

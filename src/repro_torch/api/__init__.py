@@ -10,6 +10,12 @@ façade (:class:`SolverSession`), with the live service
     batch = session.solve_many(graphs)
     svc = session.serve(service_lanes=8)   # the live service
     t = svc.submit(g); svc.drain(); svc.result(t)
+
+Durability::
+
+    session.solve(g, checkpoint_dir="ckpt")   # a checkpoint every few chunks
+    SolverSession.resume("ckpt")              # after a kill: the same result
+    svc.checkpoint("ckpt"); SolveService.restore("ckpt")   # the live service
 """
 
 from repro_torch.api.backends import BACKENDS, Backend, get_backend, known_backends
@@ -24,6 +30,7 @@ from repro_torch.api.result import (
 )
 from repro_torch.api.service import AsyncSolveService, SolveService, SolveTimeout
 from repro_torch.api.session import SolverSession, resolve_device, solve_stream_session
+from repro_torch.checkpoint.solve import CheckpointError, SolveCheckpoint
 
 __all__ = [
     "AsyncSolveService",
@@ -31,9 +38,11 @@ __all__ = [
     "Backend",
     "BatchSolveResult",
     "CacheStats",
+    "CheckpointError",
     "LaneStats",
     "PlaneCache",
     "ServiceStats",
+    "SolveCheckpoint",
     "SolveConfig",
     "SolveResult",
     "SolveService",

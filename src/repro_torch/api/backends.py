@@ -5,7 +5,12 @@ and its ``Backend`` registry.  The spmd drivers are the JAX package's loops:
 startup scatter, then chunks of up to ``chunk_rounds`` supersteps until
 quiescence (or the FPT bound) or ``max_rounds``, then one host fetch; the
 batched driver adds bucketing by W, pow2 compaction and eager per-lane
-result extraction.  Both take their plane from a :class:`PlaneCache`.
+result extraction.  Both take their plane from a :class:`PlaneCache`, and
+both are durable: ``checkpoint_dir`` writes a
+:class:`~repro_torch.checkpoint.solve.SolveCheckpoint` every
+``checkpoint_every`` chunks at the host-sync boundary, and ``resume_from``
+continues from one (either package's) to the result of a run that never
+stopped.
 
 Features of the JAX drivers that the port does not carry yet are refused
 with ``NotImplementedError`` naming their ROADMAP item; none is silently
@@ -28,14 +33,19 @@ from repro_torch.api.result import (
     from_engine_result,
     from_sequential,
 )
+from repro_torch.checkpoint import solve as _ckpt
 from repro_torch.core import engine as _engine
 from repro_torch.core.encoding import make_codec
 from repro_torch.core.superstep import (
     LaneState,
+    lane_state_from_flat,
+    lane_state_to_flat,
     map_state,
     slice_lanes,
     state_to,
     step_lanes,
+    worker_state_from_flat,
+    worker_state_to_flat,
 )
 from repro_torch.graphs.bitgraph import n_words
 from repro_torch.problems import base as problems_base
@@ -43,14 +53,11 @@ from repro_torch.problems.base import WorkCounters
 
 # config knobs / arguments the port refuses, with the ROADMAP item that ports them
 _NOT_PORTED = {
-    "checkpoint_dir": "queue 1, item 9 (checkpoint/resume)",
-    "resume_from": "queue 1, item 9 (checkpoint/resume)",
     "frontier_spill": "queue 1, item 10 (codecs + frontier spill)",
+    "spill state in a checkpoint": "queue 1, item 10 (codecs + frontier spill)",
     "use_mesh": "queue 1, item 13 (multi-device path)",
     "mesh": "queue 1, item 13 (multi-device path)",
     "injector": "queue 1, item 11 (fault wiring)",
-    "SolveService.checkpoint": "queue 1, item 9 (checkpoint/resume)",
-    "SolveService.restore": "queue 1, item 9 (checkpoint/resume)",
 }
 
 
@@ -61,13 +68,52 @@ def _refuse(what: str) -> None:
 
 
 def _refuse_unported(cfg: SolveConfig, injector) -> None:
-    for name in ("checkpoint_dir", "resume_from"):
-        if getattr(cfg, name) is not None:
-            _refuse(name)
     if cfg.frontier_spill:
         _refuse("frontier_spill")
     if injector is not None:
         _refuse("injector")
+
+
+def _refuse_spill_arrays(arrays: dict) -> None:
+    """A checkpoint holding a frontier spiller's cold tier (the JAX
+    package's ``spill…`` arrays) cannot resume here without dropping it."""
+    if any(name.rsplit("/", 1)[-1].startswith("spill") for name in arrays):
+        _refuse("spill state in a checkpoint")
+
+
+def _load_resume(cfg: SolveConfig, kind: str, fingerprint: str, verb: str,
+                 problem: str):
+    """The newest intact ``kind`` checkpoint under ``cfg.resume_from`` whose
+    fingerprint is ``fingerprint`` (falling back past corrupt generations
+    with a warning), for the solve loop ``verb``."""
+    ck = _ckpt.SolveCheckpoint.load_latest_good(
+        cfg.resume_from, expected_fingerprint=fingerprint,
+        what=f"{verb}({problem})",
+    )
+    if ck.kind != kind:
+        raise _ckpt.CheckpointError(
+            f"{cfg.resume_from} holds a {ck.kind!r} checkpoint; "
+            f"{verb}() resumes {kind!r} checkpoints only"
+        )
+    _refuse_spill_arrays(ck.arrays)
+    return ck
+
+
+def _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
+                           reduce_sweeps) -> None:
+    """One atomic SolveCheckpoint of a solo solve at a chunk boundary; the
+    port's running ``reduce_sweeps`` rides in its meta."""
+    ck = _ckpt.SolveCheckpoint(
+        kind="solo",
+        problem=spec.name,
+        config=cfg.replace(resume_from=None).to_dict(),
+        fingerprint=fingerprint,
+        rounds=rounds,
+        arrays=worker_state_to_flat(state),
+        meta={"reduce_sweeps": reduce_sweeps},
+    )
+    ck.pack_graphs([0], [g])
+    ck.save(cfg.checkpoint_dir, rounds)
 
 
 def solve_spmd(
@@ -86,7 +132,20 @@ def solve_spmd(
 
     ``initial_state`` (a :class:`~repro_torch.core.superstep.WorkerState`,
     e.g. from ``worker_state_from_flat``) starts the loop from that state
-    instead of the startup scatter, with ``rounds`` counted from 0."""
+    instead of the startup scatter, with ``rounds`` counted from 0.
+
+    Durability: with ``cfg.checkpoint_dir`` set, a ``"solo"``
+    :class:`~repro_torch.checkpoint.solve.SolveCheckpoint` is written
+    atomically every ``cfg.checkpoint_every`` chunks at the host-sync
+    boundary (step number = rounds completed): the state's copy to the
+    host, then CRC32 and ``np.savez``; a chunk that writes nothing pays
+    nothing.  With ``cfg.resume_from`` set, the solve restores the
+    newest intact generation of that state (fingerprint-checked, falling
+    back past corrupt generations with a warning) and continues; the loop
+    is deterministic, so the result equals an uninterrupted run's (modulo
+    ``wall_s`` and the durability bookkeeping).  ``reduce_sweeps`` resumes
+    from the running sum a port checkpoint keeps in its meta; a JAX
+    checkpoint has none, so there it counts from the resume."""
     _refuse_unported(cfg, injector)
     if cfg.use_mesh:
         _refuse("use_mesh")
@@ -100,9 +159,23 @@ def solve_spmd(
     counters = WorkCounters()
     use_fpt = cfg.mode == "fpt"
     fpt_bound = int(spec.fpt_target(k)) if use_fpt else None
+    fingerprint = None
+    if cfg.checkpoint_dir is not None or cfg.resume_from is not None:
+        fingerprint = _ckpt.config_fingerprint(
+            "solo", spec.name, cfg, [_ckpt.graph_digest(g)]
+        )
 
     data = problems_base.make_data(spec, g, device)
-    if initial_state is None:
+    rounds = 0
+    if cfg.resume_from is not None:
+        if initial_state is not None:
+            raise ValueError("pass resume_from or initial_state, not both")
+        ck = _load_resume(cfg, "solo", fingerprint, "solve", spec.name)
+        state = worker_state_from_flat(ck.arrays, device)
+        rounds = ck.rounds
+        counters.reduce_sweeps = int(ck.meta.get("reduce_sweeps", 0))
+        cap = int(state.frontier.masks.shape[-2])
+    elif initial_state is None:
         cap = cfg.capacity or (4 * g.n + 8 * cfg.lanes)
         state = _engine.make_instance_state(
             spec, g, cfg.num_workers, cap, W, initial_best, device
@@ -114,12 +187,18 @@ def solve_spmd(
     cache.note("solo", spec, cfg, pad, use_fpt, (g.n, W, cap, cfg.num_workers))
 
     t0 = time.perf_counter()
-    rounds = 0
+    chunks = 0
+    checkpoints_written = 0
     while rounds < cfg.max_rounds:
         state, done, ran, _ = plane(data, state, fpt_bound, counters)
         rounds += ran
+        chunks += 1
         if done:
             break
+        if cfg.checkpoint_dir is not None and chunks % cfg.checkpoint_every == 0:
+            _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
+                                   counters.reduce_sweeps)
+            checkpoints_written += 1
     host = _engine._fetch_batch_state(map_state(lambda x: x[None], state))
     wall = time.perf_counter() - t0
 
@@ -136,6 +215,8 @@ def solve_spmd(
         packed_status=cfg.packed_status,
     )
     r.reduce_sweeps = counters.reduce_sweeps
+    r.checkpoints_written = checkpoints_written
+    r.resumed_from = cfg.resume_from
     return r
 
 
@@ -152,7 +233,18 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
     down to the next power of two (finished lanes fill up to it), and the
     same plane function keeps running.  Results come back in the caller's
     order; each instance's ``wall_s`` is its bucket's wall over the bucket
-    size.  ``k`` may be one int or one per instance (fpt)."""
+    size.  ``k`` may be one int or one per instance (fpt).
+
+    Durability mirrors :func:`solve_spmd`: every ``cfg.checkpoint_every``
+    chunks a ``"many"`` checkpoint holds the in-flight bucket's lane state,
+    instance data and FPT bounds, and in its meta the bucket index, the
+    bucket's supersteps, the chunk count (its step number, monotonic across
+    buckets), the compactions, the plane counters and every result
+    finalized so far.  ``cfg.resume_from`` skips the finished buckets and
+    restarts mid-bucket.  Results are finalized eagerly (at compaction and
+    at the bucket's end), so a checkpoint never needs a lane that was
+    compacted away; ``wall_s`` is the one result field outside the
+    bit-identity contract."""
     _refuse_unported(cfg, injector)
     if cfg.use_mesh:
         raise ValueError(
@@ -174,6 +266,30 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
     wall_total = 0.0
     lane_stats = {"chunk_calls": 0, "lane_chunks": 0, "live_lane_chunks": 0}
     counters = WorkCounters()
+    chunks_total = 0
+    checkpoints_written = 0
+
+    fingerprint = None
+    if cfg.checkpoint_dir is not None or cfg.resume_from is not None:
+        fingerprint = _ckpt.config_fingerprint(
+            "many", spec.name, cfg, [_ckpt.graph_digest(g) for g in graphs]
+        )
+    resume_ck = None
+    resume_bucket = -1
+    if cfg.resume_from is not None:
+        resume_ck = _load_resume(cfg, "many", fingerprint, "solve_many", spec.name)
+        meta = resume_ck.meta
+        results = {
+            int(i): _ckpt.engine_result_from_dict(d)
+            for i, d in meta["results"].items()
+        }
+        compactions = int(meta["compactions"])
+        chunks_total = int(meta["chunks_total"])
+        lane_stats.update(
+            {k: int(v) for k, v in meta["lane_stats"].items() if k in lane_stats}
+        )
+        counters.reduce_sweeps = int(meta["lane_stats"].get("reduce_sweeps", 0))
+        resume_bucket = int(meta["bucket_idx"])
 
     def extract(host, lane, oi, rounds_i):
         return _engine._extract_result(
@@ -190,33 +306,78 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
             if oi not in results:
                 results[oi] = extract(host, lane, oi, int(rounds_h[lane]))
 
+    def write_checkpoint(bi, lanes, datas, fpt_bounds, total_ran):
+        ck = _ckpt.SolveCheckpoint(
+            kind="many",
+            problem=spec.name,
+            config=cfg.replace(resume_from=None).to_dict(),
+            fingerprint=fingerprint,
+            rounds=total_ran,
+            arrays=lane_state_to_flat(lanes),
+            meta={
+                "bucket_idx": bi,
+                "total_ran": total_ran,
+                "chunks_total": chunks_total,
+                "compactions": compactions,
+                "lane_stats": {
+                    **{k: int(v) for k, v in lane_stats.items()},
+                    "reduce_sweeps": counters.reduce_sweeps,
+                },
+                "results": {
+                    str(i): _ckpt.engine_result_to_dict(r)
+                    for i, r in results.items()
+                },
+            },
+        )
+        ck.arrays.update(_ckpt.data_to_flat(datas, "datas"))
+        if fpt_bounds is not None:
+            ck.arrays["fpt_bounds"] = fpt_bounds.cpu().numpy()
+        ck.pack_graphs(range(B), graphs)
+        ck.save(cfg.checkpoint_dir, chunks_total)
+
     buckets = _engine._bucket_instances(graphs, by_n=(cfg.codec == "basic"))
-    for (W, _), idxs in sorted(buckets.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+    ordered = sorted(buckets.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0))
+    for bi, ((W, _), idxs) in enumerate(ordered):
         bucket_graphs = [graphs[i] for i in idxs]
         n_max = max(g.n for g in bucket_graphs)
         bucket_record.append((W, n_max, list(idxs)))
+        if bi < resume_bucket:
+            continue  # finalized before the checkpoint: restored above
         t0 = time.perf_counter()
         cap = cfg.capacity or (4 * n_max + 8 * cfg.lanes)
         pad = make_codec(cfg.codec, n_max, problem=spec).pad_words
-        initial_bests = [
-            problems_base.initial_bound(spec, graphs[i], cfg.mode, ks[i])
-            for i in idxs
-        ]
-        datas = problems_base.make_batch_data(spec, bucket_graphs, n_max, W, device)
-        lanes = LaneState(
-            worker=_engine._make_batch_state(
-                spec, bucket_graphs, cfg.num_workers, cap, W, initial_bests, device
-            ),
-            done=torch.zeros((len(idxs),), dtype=torch.bool, device=device),
-            tag=np.asarray(idxs, np.int32),
-            rounds=torch.zeros((len(idxs),), dtype=torch.int32, device=device),
-        )
-        fpt_bounds = None
-        if use_fpt:
-            fpt_bounds = torch.tensor(
-                [spec.fpt_target(ks[i]) for i in idxs], dtype=torch.int32,
-                device=device,
+        if bi == resume_bucket:
+            lanes = lane_state_from_flat(resume_ck.arrays, device)
+            datas = _ckpt.data_from_flat(resume_ck.arrays, "datas", device)
+            fpt_bounds = None
+            if use_fpt:
+                fpt_bounds = torch.from_numpy(
+                    np.asarray(resume_ck.arrays["fpt_bounds"], np.int32).copy()
+                ).to(device)
+            total_ran = int(resume_ck.meta["total_ran"])
+            live_h = ~lanes.done.cpu().numpy()
+        else:
+            initial_bests = [
+                problems_base.initial_bound(spec, graphs[i], cfg.mode, ks[i])
+                for i in idxs
+            ]
+            datas = problems_base.make_batch_data(spec, bucket_graphs, n_max, W, device)
+            lanes = LaneState(
+                worker=_engine._make_batch_state(
+                    spec, bucket_graphs, cfg.num_workers, cap, W, initial_bests, device
+                ),
+                done=torch.zeros((len(idxs),), dtype=torch.bool, device=device),
+                tag=np.asarray(idxs, np.int32),
+                rounds=torch.zeros((len(idxs),), dtype=torch.int32, device=device),
             )
+            fpt_bounds = None
+            if use_fpt:
+                fpt_bounds = torch.tensor(
+                    [spec.fpt_target(ks[i]) for i in idxs], dtype=torch.int32,
+                    device=device,
+                )
+            total_ran = 0
+            live_h = np.ones(len(idxs), bool)  # live entering the next chunk
         plane = cache.batch_plane(spec, cfg, pad, use_fpt)
 
         def note(n_lanes):
@@ -224,14 +385,13 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
                        (n_max, W, cap, cfg.num_workers, n_lanes))
 
         note(lanes.num_lanes)
-        total_ran = 0
-        live_h = np.ones(len(idxs), bool)  # live entering the next chunk
         while total_ran < cfg.max_rounds:
             lane_stats["chunk_calls"] += 1
             lane_stats["lane_chunks"] += lanes.num_lanes
             lane_stats["live_lane_chunks"] += int(live_h.sum())
             lanes, ran, _ = step_lanes(plane, datas, lanes, fpt_bounds, counters)
             total_ran += ran
+            chunks_total += 1
             done_h = lanes.done.cpu().numpy()
             live_h = ~done_h
             if done_h.all():
@@ -255,6 +415,9 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
                 live_h = live_h[sel]
                 compactions += 1
                 note(lanes.num_lanes)
+            if cfg.checkpoint_dir is not None and chunks_total % cfg.checkpoint_every == 0:
+                write_checkpoint(bi, lanes, datas, fpt_bounds, total_ran)
+                checkpoints_written += 1
 
         collect(lanes, range(lanes.num_lanes))
         bucket_wall = time.perf_counter() - t0
@@ -268,6 +431,9 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
         else 0.0
     )
     lane_stats["reduce_sweeps"] = counters.reduce_sweeps
+    for r in results.values():
+        r.checkpoints_written = checkpoints_written
+        r.resumed_from = cfg.resume_from
     return _engine.BatchResult(
         results=[results[i] for i in range(B)],
         wall_s=wall_total,

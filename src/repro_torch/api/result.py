@@ -37,6 +37,10 @@ class ServiceStats:
     lanes_quarantined: int = 0
     retries: int = 0
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServiceStats":
+        return cls(**{f.name: d[f.name] for f in dataclasses.fields(cls) if f.name in d})
+
 
 @dataclasses.dataclass
 class SolveStats:
@@ -49,6 +53,9 @@ class SolveStats:
     transfer_rounds: int = 0
     transfer_bytes_total: int = 0
     transfer_bytes_per_round: float = 0.0
+    # -- durability (spmd checkpoint/resume) ----------------------------------
+    checkpoints_written: int = 0
+    resumed_from: Optional[str] = None
     # reduction sweeps: the sum over explore rounds of the largest per-lane
     # trip count of the reduction loop (the JAX package's vmapped
     # while_loop runs that many).  Solo solves only: a batch's rounds serve
@@ -60,6 +67,18 @@ class SolveStats:
     max_depth: int = 0
     # -- service envelope (None outside SolveService) -------------------------
     service: Optional[ServiceStats] = None
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SolveStats":
+        """From either package's ``to_dict``: fields the port does not
+        carry (the JAX package's simulator and spill counters) are
+        ignored."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in known and k != "service"}
+        service = d.get("service")
+        if service is not None:
+            kw["service"] = ServiceStats.from_dict(service)
+        return cls(**kw)
 
 
 @dataclasses.dataclass
@@ -103,6 +122,24 @@ class SolveResult:
         if self.best_sol is not None:
             d["best_sol"] = [int(w) for w in np.asarray(self.best_sol, np.uint32)]
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SolveResult":
+        """Inverse of :meth:`to_dict` (the service checkpoint round trip);
+        takes the JAX package's ``to_dict`` too."""
+        sol = d.get("best_sol")
+        return cls(
+            problem=d["problem"],
+            backend=d["backend"],
+            best_size=d["best_size"],
+            best_sol=None if sol is None else np.asarray(sol, np.uint32),
+            found=d["found"],
+            wall_s=d["wall_s"],
+            rounds=d["rounds"],
+            nodes_expanded=d["nodes_expanded"],
+            tasks_transferred=d["tasks_transferred"],
+            stats=SolveStats.from_dict(d.get("stats") or {}),
+        )
 
 
 @dataclasses.dataclass
@@ -149,6 +186,8 @@ def from_engine_result(r, *, problem: str, backend: str = "spmd") -> SolveResult
             transfer_rounds=r.transfer_rounds,
             transfer_bytes_total=r.transfer_bytes_total,
             transfer_bytes_per_round=r.transfer_bytes_per_round,
+            checkpoints_written=r.checkpoints_written,
+            resumed_from=r.resumed_from,
             reduce_sweeps=r.reduce_sweeps,
         ),
     )

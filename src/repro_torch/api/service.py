@@ -37,8 +37,13 @@ its best-so-far result and ``r.stats.service.deadline_hit`` /
 ``.wall_deadline_hit`` set.  Wall time is read from an injectable
 ``clock``, so deadline behaviour is testable without sleeping.
 
-The JAX service's durability (``checkpoint``/``restore``,
-``config.checkpoint_dir``), per-lane frontier spill
+Durability is the JAX service's: :meth:`SolveService.checkpoint` writes
+every live plane's lanes, instance data and FPT bounds, the pending queue,
+the finished but unclaimed results and the counters in one atomic
+``"service"`` checkpoint (``config.checkpoint_dir`` writes one every
+``checkpoint_every`` steps), and :meth:`SolveService.restore` rebuilds a
+service from one, written by either package, that finishes every ticket as
+the uninterrupted service would.  Per-lane frontier spill
 (``config.frontier_spill``) and fault injection (``injector=``) are not
 ported yet: each raises ``NotImplementedError`` naming its ROADMAP item.
 The JAX service's stall watchdog, lane quarantine and load shedding wait
@@ -61,15 +66,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.api.backends import _refuse
+from repro_torch.api.backends import _refuse, _refuse_spill_arrays
 from repro_torch.api.cache import PlaneCache
 from repro_torch.api.config import SolveConfig
 from repro_torch.api.result import ServiceStats, SolveResult, from_engine_result
 from repro_torch.api.session import resolve_device
+from repro_torch.checkpoint import solve as _ckpt
 from repro_torch.core import engine as _engine
 from repro_torch.core.encoding import make_codec
 from repro_torch.core.superstep import (
     lane_retire,
+    lane_state_from_flat,
+    lane_state_to_flat,
     lane_swap_in,
     make_vacant_lanes,
     step_lanes,
@@ -112,6 +120,34 @@ class SolveRequest:
     tenant: Optional[str] = None
     k: Optional[int] = None  # fpt decision target (fpt mode only)
     submit_s: float = 0.0
+
+
+def _req_meta(req: SolveRequest) -> dict:
+    """The scheduling attributes of a request for a checkpoint's meta (the
+    graph rides in the checkpoint's arrays, keyed by ticket).  ``submit_s``
+    is on the service's own clock, as the JAX package keeps it."""
+    return {
+        "ticket": req.ticket,
+        "priority": req.priority,
+        "deadline": req.deadline,
+        "deadline_s": req.deadline_s,
+        "tenant": req.tenant,
+        "k": req.k,
+        "submit_s": req.submit_s,
+    }
+
+
+def _req_from_meta(m: dict, graphs: dict) -> SolveRequest:
+    return SolveRequest(
+        ticket=int(m["ticket"]),
+        g=graphs[int(m["ticket"])],
+        priority=int(m["priority"]),
+        deadline=m["deadline"],
+        deadline_s=m.get("deadline_s"),
+        tenant=m["tenant"],
+        k=m["k"],
+        submit_s=float(m["submit_s"]),
+    )
 
 
 class LaneScheduler:
@@ -239,8 +275,6 @@ class SolveService:
             )
         if injector is not None:
             _refuse("injector")
-        if self.config.checkpoint_dir is not None:
-            _refuse("checkpoint_dir")
         if self.config.frontier_spill:
             _refuse("frontier_spill")
         self.cache = cache if cache is not None else PlaneCache()
@@ -317,7 +351,10 @@ class SolveService:
 
     def step(self) -> list:
         """Admit into vacant lanes, run ONE chunk per live plane, retire
-        finished lanes; returns the tickets completed this step."""
+        finished lanes; returns the tickets completed this step.
+
+        With ``config.checkpoint_dir`` set, every ``checkpoint_every``-th
+        step also writes a service checkpoint (see :meth:`checkpoint`)."""
         self._stats["steps"] += 1
         completed = self._sweep_queue_timeouts()
         self._admit()
@@ -325,6 +362,11 @@ class SolveService:
             if plane.occupied_count() == 0:
                 continue  # an all-vacant plane costs nothing
             completed.extend(self._step_plane(plane))
+        if (
+            self.config.checkpoint_dir is not None
+            and self._stats["steps"] % self.config.checkpoint_every == 0
+        ):
+            self.checkpoint(self.config.checkpoint_dir)
         return completed
 
     def drain(self) -> list:
@@ -398,7 +440,7 @@ class SolveService:
         s["residency_s_mean"] = s["residency_s_total"] / n_done if n_done else 0.0
         for name in ("faults_injected", "faults_recovered", "retries",
                      "lanes_quarantined", "lanes_shed"):
-            s[name] = 0
+            s.setdefault(name, 0)  # a JAX service checkpoint may carry them
         s["reduce_sweeps"] = sum(
             p.counters.reduce_sweeps for p in self._planes.values()
         )
@@ -407,15 +449,135 @@ class SolveService:
     def cache_stats(self) -> dict:
         return self.cache.stats().to_dict()
 
-    # -- durability: not ported yet --------------------------------------------
+    # -- durability ------------------------------------------------------------
 
-    def checkpoint(self, directory: Optional[str] = None, *, blocking: bool = True):
-        _refuse("SolveService.checkpoint")
+    def checkpoint(
+        self, directory: Optional[str] = None, *, blocking: bool = True
+    ) -> str:
+        """Snapshot the whole service (every live plane's lane state,
+        instance data and FPT bounds, the pending queue, finished but
+        unclaimed results, the ticket counter and the stats) atomically
+        through :mod:`repro_torch.checkpoint.store`; the step number is the
+        service's steps.  Returns the ``step_<N>`` path.
+
+        A service restored from it (:meth:`restore`) finishes every ticket
+        with the answers of the uninterrupted service: lane state is exact,
+        admission is a pure function of the restored queue and occupancy,
+        and superstep deadlines ride in the restored per-lane ``rounds``.
+        Each plane's running ``reduce_sweeps`` (the port's own counter)
+        rides in its meta."""
+        directory = directory or self.config.checkpoint_dir
+        if directory is None:
+            raise ValueError(
+                "no checkpoint directory: pass one or set "
+                "SolveConfig.checkpoint_dir"
+            )
+        ck = _ckpt.SolveCheckpoint(
+            kind="service",
+            problem=self.spec.name,
+            config=self.config.replace(resume_from=None).to_dict(),
+            fingerprint=_ckpt.config_fingerprint(
+                "service", self.spec.name, self.config, []
+            ),
+            rounds=self._stats["steps"],
+            arrays={},
+        )
+        planes_meta = []
+        for pi, (key, plane) in enumerate(self._planes.items()):
+            ck.arrays.update(lane_state_to_flat(plane.lanes, f"plane{pi}/lanes"))
+            ck.arrays.update(_ckpt.data_to_flat(plane.datas, f"plane{pi}/datas"))
+            if plane.use_fpt:
+                ck.arrays[f"plane{pi}/fpt_bounds"] = plane.fpt_bounds.cpu().numpy()
+            planes_meta.append(
+                {
+                    "key": list(key),
+                    "requests": [
+                        None if r is None else _req_meta(r)
+                        for r in plane.requests
+                    ],
+                    "admit_s": [float(a) for a in plane.admit_s],
+                    "reduce_sweeps": plane.counters.reduce_sweeps,
+                }
+            )
+        live = [r for p in self._planes.values() for r in p.requests if r is not None]
+        queued = list(self.scheduler._queue)
+        ck.pack_graphs(
+            [r.ticket for r in live + queued], [r.g for r in live + queued]
+        )
+        ck.meta.update(
+            {
+                "planes": planes_meta,
+                "queue": [_req_meta(r) for r in queued],
+                "results": {
+                    str(t): r.to_dict() for t, r in self._results.items()
+                },
+                "next_ticket": self._next_ticket,
+                "stats": dict(self._stats),
+            }
+        )
+        return ck.save(directory, self._stats["steps"], blocking=blocking)
 
     @classmethod
-    def restore(cls, path: str, *, step: Optional[int] = None,
-                cache: Optional[PlaneCache] = None):
-        _refuse("SolveService.restore")
+    def restore(
+        cls,
+        path: str,
+        *,
+        step: Optional[int] = None,
+        cache: Optional[PlaneCache] = None,
+        device=None,
+    ) -> "SolveService":
+        """Rebuild a service on ``device`` (None: the card) from a
+        :meth:`checkpoint` snapshot of either package (a checkpoint dir,
+        latest intact step, or one ``step_<N>`` subdir).
+
+        Each plane is rebuilt at its saved key through the normal
+        :class:`_LivePlane` path (its plane function comes from ``cache``,
+        so a warm cache builds none) and the saved lanes, instance data and
+        FPT bounds are written into it.  The fault-ledger counters of a
+        JAX checkpoint's stats are taken as they are (0 without an
+        injector); ``reduce_sweeps`` resumes from a port checkpoint's
+        running sums and counts from the restore for a JAX one."""
+        if step is None:
+            # walk the retained generations past corrupt snapshots, as the
+            # solo and batch resumes do
+            ck = _ckpt.SolveCheckpoint.load_latest_good(path, what="service")
+        else:
+            ck = _ckpt.SolveCheckpoint.load(path, step)
+        if ck.kind != "service":
+            raise _ckpt.CheckpointError(
+                f"{path} holds a {ck.kind!r} checkpoint; "
+                f"SolveService.restore needs a 'service' checkpoint"
+            )
+        _refuse_spill_arrays(ck.arrays)
+        svc = cls(ck.problem, SolveConfig.from_dict(ck.config), cache=cache,
+                  device=device)
+        meta = ck.meta
+        graphs = {int(t): ck.unpack_graph(int(t)) for t in meta["graph_ns"]}
+        for pi, pmeta in enumerate(meta["planes"]):
+            W, n_exact = pmeta["key"]
+            key = (int(W), None if n_exact is None else int(n_exact))
+            plane = _LivePlane(svc.spec, svc.config, svc.cache, key, svc.device)
+            plane.lanes = lane_state_from_flat(ck.arrays, svc.device, f"plane{pi}/lanes")
+            plane.datas = _ckpt.data_from_flat(ck.arrays, f"plane{pi}/datas", svc.device)
+            if plane.use_fpt:
+                plane.fpt_bounds = torch.from_numpy(
+                    np.asarray(ck.arrays[f"plane{pi}/fpt_bounds"], np.int32).copy()
+                ).to(svc.device)
+            plane.requests = [
+                None if m is None else _req_from_meta(m, graphs)
+                for m in pmeta["requests"]
+            ]
+            plane.admit_s = [float(a) for a in pmeta["admit_s"]]
+            plane.counters.reduce_sweeps = int(pmeta.get("reduce_sweeps", 0))
+            svc._planes[key] = plane
+        for m in meta["queue"]:
+            svc.scheduler.push(_req_from_meta(m, graphs))
+        svc._results = {
+            int(t): SolveResult.from_dict(d) for t, d in meta["results"].items()
+        }
+        svc._next_ticket = int(meta["next_ticket"])
+        svc._stats.update(meta["stats"])
+        return svc
 
     # -- internals -------------------------------------------------------------
 

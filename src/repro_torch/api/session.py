@@ -1,7 +1,8 @@
 """``SolverSession``: the port's public way to solve branching problems.
 
 The port of ``repro/api/session.py``'s constructor, ``solve``,
-``solve_many`` and ``cache_stats``.  A session binds (problem, backend,
+``solve_many`` (both durable: ``checkpoint_dir``/``resume_from``),
+``resume`` and ``cache_stats``.  A session binds (problem, backend,
 config, device) once and owns a :class:`~repro_torch.api.cache.PlaneCache`
 (or shares one passed in).  The device is the card unless the caller asks
 for another: ``device=None`` means ``"cuda"``, and a session on CUDA raises
@@ -27,6 +28,7 @@ from repro_torch.api.backends import Backend, get_backend
 from repro_torch.api.cache import PlaneCache
 from repro_torch.api.config import SolveConfig
 from repro_torch.api.result import BatchSolveResult, SolveResult
+from repro_torch.checkpoint.solve import CheckpointError, SolveCheckpoint
 from repro_torch.problems.registry import DEFAULT_PROBLEM, get_problem
 
 
@@ -77,21 +79,94 @@ class SolverSession:
         self._batcher = None  # lazy serving.balancer.SolveBatcher
         self._results: dict = {}  # ticket -> SolveResult
 
-    def solve(self, g, **backend_kw) -> SolveResult:
+    def solve(
+        self,
+        g,
+        *,
+        checkpoint_dir: Optional[str] = None,
+        resume_from: Optional[str] = None,
+        **backend_kw,
+    ) -> SolveResult:
         """Solve one instance; ``backend_kw`` passes backend-specific extras
-        (spmd: ``initial_state``)."""
+        (spmd: ``initial_state``).
+
+        ``checkpoint_dir``/``resume_from`` override the config's durability
+        knobs for THIS call (spmd): a
+        :class:`~repro_torch.checkpoint.solve.SolveCheckpoint` every
+        ``config.checkpoint_every`` chunks, and a fingerprint-checked
+        restore-and-continue."""
         return self.backend.solve(
-            self.problem, g, self.config, self.cache, device=self.device,
-            **backend_kw,
+            self.problem, g, self._call_config(checkpoint_dir, resume_from),
+            self.cache, device=self.device, **backend_kw,
         )
 
-    def solve_many(self, graphs, **backend_kw) -> BatchSolveResult:
+    def solve_many(
+        self,
+        graphs,
+        *,
+        checkpoint_dir: Optional[str] = None,
+        resume_from: Optional[str] = None,
+        **backend_kw,
+    ) -> BatchSolveResult:
         """Solve B instances: on one batched plane per W bucket (spmd) or
-        one after another (sequential)."""
+        one after another (sequential); the durability knobs as in
+        :meth:`solve`."""
         return self.backend.solve_many(
-            self.problem, list(graphs), self.config, self.cache,
+            self.problem, list(graphs),
+            self._call_config(checkpoint_dir, resume_from), self.cache,
             device=self.device, **backend_kw,
         )
+
+    def _call_config(self, checkpoint_dir, resume_from) -> SolveConfig:
+        overrides = {
+            k: v
+            for k, v in (
+                ("checkpoint_dir", checkpoint_dir),
+                ("resume_from", resume_from),
+            )
+            if v is not None
+        }
+        return self.config.replace(**overrides) if overrides else self.config
+
+    @classmethod
+    def resume(
+        cls,
+        path: str,
+        *,
+        backend="spmd",
+        cache: Optional[PlaneCache] = None,
+        device=None,
+        **config_overrides,
+    ) -> "SolveResult | BatchSolveResult":
+        """Resume a checkpointed solve to completion on ``device`` (None:
+        the card) and return its result.
+
+        ``path`` is a checkpoint directory (latest intact step) or one
+        ``.../step_<N>`` subdir, written by this package or the JAX one.
+        The session is rebuilt FROM the checkpoint (problem, config and
+        instance graphs are stored in it), then the solve continues from
+        the saved state to the result of the uninterrupted run (modulo
+        wall clock).  ``config_overrides`` may adjust post-trajectory knobs
+        (``max_rounds``, ``checkpoint_dir``, ...); changing a trajectory
+        knob is refused by the fingerprint check.
+
+        Service checkpoints restore through
+        :meth:`repro_torch.api.SolveService.restore` (they hold live lanes
+        and a queue, not one result)."""
+        ck = SolveCheckpoint.load_latest_good(path, what="session")
+        if ck.kind == "service":
+            raise CheckpointError(
+                f"{path} holds a service checkpoint; use "
+                f"SolveService.restore(path)"
+            )
+        cfg = SolveConfig.from_dict(ck.config).replace(
+            resume_from=path, **config_overrides
+        )
+        session = cls(problem=ck.problem, backend=backend, config=cfg,
+                      cache=cache, device=device)
+        if ck.kind == "solo":
+            return session.solve(ck.unpack_graph(0))
+        return session.solve_many(ck.unpack_graphs())
 
     # -- asynchronous admission (the serving front) ----------------------------
 

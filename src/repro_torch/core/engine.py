@@ -44,6 +44,11 @@ class EngineResult:
     transfer_rounds: int
     transfer_bytes_total: int
     transfer_bytes_per_round: float
+    # durability: how many SolveCheckpoints this run wrote, and the
+    # checkpoint path it restored from (None = started fresh); set by the
+    # solve loops in repro_torch.api.backends
+    checkpoints_written: int = 0
+    resumed_from: Optional[str] = None
     # reduction sweeps run over whole lane batches (set by the driver)
     reduce_sweeps: int = 0
 

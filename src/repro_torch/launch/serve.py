@@ -14,8 +14,13 @@ Usage:
   python -m repro_torch.launch.serve --smoke --device cpu
   python -m repro_torch.launch.serve --problem max_clique \
       --requests 32 --lanes 8 --rate 4.0 --n 24
+  python -m repro_torch.launch.serve --checkpoint-dir ckpt --checkpoint-every 4
+  python -m repro_torch.launch.serve --resume ckpt   # after a kill
 
-(``--checkpoint-dir``/``--resume`` are refused: ROADMAP queue 1, item 9.)
+``--checkpoint-dir`` checkpoints the live service (lanes and queue) every
+``--checkpoint-every`` steps; ``--resume`` restores a service checkpoint
+(either package's) first, and its in-flight and queued tickets finish
+beside the new stream.
 """
 
 from __future__ import annotations
@@ -54,8 +59,19 @@ async def run_service(args, reqs) -> dict:
         chunk_rounds=args.chunk_rounds,
         service_lanes=args.lanes,
         admission=args.admission,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
     )
-    service = SolveService(args.problem, cfg, device=args.device)
+    leftover = []
+    if args.resume:
+        # live lanes and the pending queue from a service checkpoint; its
+        # tickets finish beside the fresh stream
+        service = SolveService.restore(args.resume, device=args.device)
+        leftover = service.tickets()
+        print(f"[serve] restored {args.resume}: {len(leftover)} "
+              f"in-flight/queued tickets resume")
+    else:
+        service = SolveService(args.problem, cfg, device=args.device)
     latencies = []
     t0 = time.perf_counter()
 
@@ -71,11 +87,21 @@ async def run_service(args, reqs) -> dict:
 
     async with AsyncSolveService(service) as svc:
         results = await asyncio.gather(*(one(a, g) for a, g in reqs))
+    # the restored checkpoint's own tickets may still be in flight: finish
+    # them, so a killed and restarted service completes all it admitted
+    resumed_results = {}
+    if leftover:
+        service.drain()
+        resumed_results = {t: service.result(t) for t in leftover}
     wall = time.perf_counter() - t0
 
     lat = np.array(sorted(latencies))
     stats = service.stats()
     return {
+        "resumed_tickets": len(resumed_results),
+        "resumed_best_sizes": [
+            resumed_results[t].best_size for t in sorted(resumed_results)
+        ],
         "requests": len(reqs),
         "wall_s": wall,
         "instances_per_s": len(reqs) / wall,
@@ -113,11 +139,12 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda: the card; cpu: the plain path)")
     ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP queue 1, item 9)")
-    ap.add_argument("--checkpoint-every", type=int, default=8,
-                    help="with --checkpoint-dir (not ported yet)")
+                    help="auto-checkpoint the live service (lanes + queue) "
+                         "every --checkpoint-every steps")
+    ap.add_argument("--checkpoint-every", type=int, default=8)
     ap.add_argument("--resume", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP queue 1, item 9)")
+                    help="restore a service checkpoint first; its in-flight "
+                         "and queued tickets finish alongside the new stream")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny settings for CI")
     ap.add_argument("--json", action="store_true",
@@ -134,11 +161,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.checkpoint_dir is not None or args.resume is not None:
-        raise NotImplementedError(
-            "service checkpoint/resume is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 9 (checkpoint/resume))"
-        )
     rng = np.random.default_rng(args.seed)
     reqs = build_requests(args, rng)
     out = asyncio.run(run_service(args, reqs))
@@ -151,6 +173,8 @@ def main(argv=None) -> dict:
             f"{out['latency_p50_s']*1e3:.0f}ms p99 "
             f"{out['latency_p99_s']*1e3:.0f}ms, plane occupancy "
             f"{out['occupancy']:.2f}, evicted {out['evicted']}"
+            + (f", resumed {out['resumed_tickets']} checkpointed tickets"
+               if out["resumed_tickets"] else "")
         )
         print(f"[serve] cache: {out['cache']}")
     return out

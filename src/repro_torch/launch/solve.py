@@ -1,8 +1,10 @@
 """Solver driver of the port: spmd or sequential, one config.
 
-The port of ``repro/launch/solve.py`` without its checkpoint and chaos
-flags: the same graph flags, the same config flags (a ``--config`` JSON is
-read by both packages alike) and the same ``[solve] best=... rounds=...``
+The port of ``repro/launch/solve.py`` without its chaos flags: the same
+graph flags, the same config flags (a ``--config`` JSON is read by both
+packages alike), the same checkpoint flags (``--checkpoint-dir``,
+``--checkpoint-every``, and ``--resume DIR``, which rebuilds the solve from
+a checkpoint of either package) and the same ``[solve] best=... rounds=...``
 lines.  Several DIMACS files (``--files``) and/or ``--batch B`` generated
 instances (consecutive seeds) go to ``solve_many``, one batched plane per
 W bucket.  It runs on the card unless ``--device cpu`` asks for the CPU.
@@ -13,6 +15,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 --workers 4
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu \\
       --problem max_clique --n 20 --p 0.4 --workers 4 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.solve --n 600 --p 0.00668 \\
+      --workers 128 --checkpoint-dir ckpt --checkpoint-every 4
+  PYTHONPATH=src python -m repro_torch.launch.solve --resume ckpt  # after a kill
 """
 
 from __future__ import annotations
@@ -71,6 +76,8 @@ CONFIG_FLAGS = {
     "k": "k",
     "capacity": "capacity",
     "max_rounds": "max_rounds",
+    "checkpoint_dir": "checkpoint_dir",
+    "checkpoint_every": "checkpoint_every",
 }
 
 
@@ -85,6 +92,32 @@ def effective_config(args):
         if dest in CONFIG_FLAGS
     }
     return base.replace(**provided) if provided else base
+
+
+def resume_solve(args):
+    """--resume DIR: rebuild the session FROM the checkpoint (problem,
+    config and graphs all live in it) and run to completion.  Explicit CLI
+    flags act as config overrides; the fingerprint check refuses any that
+    would change the solve trajectory."""
+    from repro_torch.api import BatchSolveResult, SolverSession
+
+    overrides = {
+        CONFIG_FLAGS[dest]: value
+        for dest, value in vars(args).items()
+        if dest in CONFIG_FLAGS
+    }
+    res = SolverSession.resume(args.resume, device=args.device, **overrides)
+    if isinstance(res, BatchSolveResult):
+        for i, r in enumerate(res.results):
+            print(f"[solve]   instance {i}: best={r.best_size} "
+                  f"rounds={r.rounds} nodes={r.nodes_expanded}")
+        print(f"[solve] resumed batch from {args.resume}: "
+              f"{len(res.results)} instances in {res.wall_s:.2f}s")
+    else:
+        print(f"[solve] resumed from {args.resume}: best={res.best_size} "
+              f"rounds={res.rounds} nodes={res.nodes_expanded} "
+              f"wall={res.wall_s:.2f}s")
+    return res
 
 
 def main(argv=None):
@@ -130,7 +163,19 @@ def main(argv=None):
     ap.add_argument("--max-rounds", type=int, default=S,
                     help="superstep budget (checked per chunk): a bounded "
                          "anytime solve")
+    ap.add_argument("--checkpoint-dir", default=S, metavar="DIR",
+                    help="write a resumable SolveCheckpoint every "
+                         "--checkpoint-every chunks (spmd)")
+    ap.add_argument("--checkpoint-every", type=int, default=S,
+                    help="chunks between checkpoint writes (default 8)")
+    ap.add_argument("--resume", default=None, metavar="DIR",
+                    help="resume a checkpointed solve (dir or step_N subdir); "
+                         "problem/config/graphs come from the checkpoint, "
+                         "explicit flags override non-trajectory knobs")
     args = ap.parse_args(argv)
+
+    if args.resume:
+        return resume_solve(args)
 
     from repro_torch.api import SolverSession, get_backend
     from repro_torch.problems.registry import get_problem
@@ -183,6 +228,8 @@ def main(argv=None):
                  f"(total {s.transfer_bytes_total}B over "
                  f"{s.transfer_rounds} transfer rounds, "
                  f"{cfg.transfer_impl})")
+        if s.checkpoints_written:
+            line += f" checkpoints={s.checkpoints_written}"
     print(line)
 
 

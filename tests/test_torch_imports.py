@@ -1,7 +1,9 @@
 """The port's package rules: no JAX, no ``repro``, the card unless asked.
 
-* importing every ``repro_torch`` module loads no ``jax*`` module and no
-  ``repro``/``repro.*`` module (checked in a fresh interpreter);
+* importing every ``repro_torch`` module loads no ``jax*`` module, no
+  ``repro``/``repro.*`` module and no ``msgpack`` (the card's machine has
+  none; the checkpoint manifests go through the port's own codec), checked
+  in a fresh interpreter;
 * no source file under ``src/repro_torch``, and not ``chip_smoke.py``,
   imports them (AST scan);
 * ``SolverSession()`` with CUDA absent raises instead of running on the CPU;
@@ -30,7 +32,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({"modules": names, "bad": bad}))
+msgpack = sorted(m for m in sys.modules if m == "msgpack" or m.startswith("msgpack."))
+print(json.dumps({"modules": names, "bad": bad, "msgpack": msgpack}))
 """
 
 
@@ -42,6 +45,7 @@ def test_import_loads_no_jax_and_no_repro():
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
+    assert report["msgpack"] == []
     # the probe really imported the slice's modules
     for name in (
         "repro_torch.api.session",
@@ -68,6 +72,9 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.serving.balancer",
         "repro_torch.api.service",
         "repro_torch.launch.serve",
+        "repro_torch.checkpoint.store",
+        "repro_torch.checkpoint.solve",
+        "repro_torch.checkpoint._msgpack",
     ):
         assert name in report["modules"]
 
@@ -89,7 +96,7 @@ def test_sources_import_neither_jax_nor_repro():
         (str(p.relative_to(ROOT)), root)
         for p in files
         for root in _imported_roots(p)
-        if root in ("jax", "jaxlib", "repro")
+        if root in ("jax", "jaxlib", "repro", "msgpack")
     ]
     assert offenders == []
 
@@ -111,8 +118,6 @@ def test_unported_features_refuse():
 
     g = erdos_renyi(12, 0.3, 0)
     for kw in (
-        dict(checkpoint_dir="ckpt"),
-        dict(resume_from="ckpt"),
         dict(frontier_spill=True),
         dict(use_mesh=True),
         dict(explore_impl="reference"),
@@ -120,19 +125,10 @@ def test_unported_features_refuse():
         session = SolverSession(config=SolveConfig(num_workers=2, **kw), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             session.solve(g)
-    session = SolverSession(config=SolveConfig(num_workers=2, checkpoint_dir="ckpt"),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        session.solve_many([g, g])
-    # the live service: durability, spill and fault injection wait for items 9-11
+    # the live service: spill and fault injection wait for items 10-11
     from repro_torch.api import SolveService
 
-    svc = SolveService("max_clique", SolveConfig(num_workers=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        svc.checkpoint("ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        SolveService.restore("ckpt")
-    for kw, item in ((dict(checkpoint_dir="ckpt"), 9), (dict(frontier_spill=True), 10)):
+    for kw, item in ((dict(frontier_spill=True), 10),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
             SolveService("max_clique", SolveConfig(num_workers=2, **kw), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):

@@ -16,9 +16,11 @@ step-by-step parity run against the JAX package's service.
   the port's, on vertex cover and max clique: the same tickets complete at
   the same step in the same order, with equal result fields and equal
   ``ServiceStats`` and ``stats()``;
-* the JAX service's durability, spill and fault injection are refused with
-  their ROADMAP items (the JAX test
-  ``test_wall_deadline_survives_checkpoint_restore`` belongs to item 9).
+* the JAX test ``test_wall_deadline_survives_checkpoint_restore``: a
+  request's ``deadline_s`` rides through ``checkpoint()``/``restore()``
+  (the rest of the service's durability is ``tests/test_torch_durability.py``);
+* the JAX service's spill and fault injection are refused with their
+  ROADMAP items.
 """
 
 import json
@@ -320,20 +322,33 @@ def test_submit_validation():
         SolveService("vertex_cover", SolveConfig(num_workers=2, use_mesh=True), **CPU)
 
 
+def test_wall_deadline_survives_checkpoint_restore(tmp_path):
+    """``deadline_s`` rides the request metadata through checkpoint(): a
+    restored service still enforces the original wall budget."""
+    cfg = SolveConfig(
+        num_workers=4, steps_per_round=2, chunk_rounds=1, service_lanes=2
+    )
+    svc = SolveService("vertex_cover", cfg, clock=FakeClock(), **CPU)
+    svc.submit(erdos_renyi(40, 0.28, 0), deadline_s=5.0)
+    svc.step()
+    svc.checkpoint(str(tmp_path / "ck"))
+    back = SolveService.restore(str(tmp_path / "ck"), **CPU)
+    req = next(
+        r
+        for p in back._planes.values()
+        for r in p.requests
+        if r is not None
+    )
+    assert req.deadline_s == 5.0
+
+
 def test_unported_service_features_refuse(tmp_path):
-    """What the JAX service does beyond the live plane refuses with its
-    ROADMAP item; ``test_wall_deadline_survives_checkpoint_restore`` of the
-    JAX tests waits for item 9."""
+    """What the JAX service does beyond the live plane and its durability
+    refuses with its ROADMAP item."""
     cfg = SolveConfig(num_workers=2, service_lanes=2)
     svc = SolveService("vertex_cover", cfg, **CPU)
     svc.submit(erdos_renyi(12, 0.3, 0), deadline_s=5.0)
     svc.step()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        svc.checkpoint(str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        SolveService.restore(str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        SolveService("vertex_cover", cfg.replace(checkpoint_dir=str(tmp_path)), **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         SolveService("vertex_cover", cfg.replace(frontier_spill=True), **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):

@@ -7,7 +7,8 @@
 * ``serve()`` refuses a non-spmd backend and hands its device and cache to
   the service; ``SolveService`` with ``device=None`` raises without CUDA;
 * ``python -m repro_torch.launch.serve --smoke --device cpu`` prints its
-  ``[serve]`` lines, and its refusals name their ROADMAP item.
+  ``[serve]`` lines; ``--checkpoint-dir`` then ``--resume`` finishes the
+  checkpointed tickets.
 """
 
 import os
@@ -161,5 +162,31 @@ def test_launch_serve_answers_every_request_correctly():
     graphs = [g for _, g in serve.build_requests(args, np.random.default_rng(args.seed))]
     assert out["best_sizes"] == [solve_sequential_max_clique(g)[0] for g in graphs]
     assert out["cache"]["planes"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        serve.main(["--device", "cpu", "--resume", "ckpt"])
+
+
+def test_launch_serve_checkpoints_and_resumes(tmp_path):
+    """``--checkpoint-dir`` writes the live service's checkpoints; ``--resume``
+    restores one and finishes its in-flight and queued tickets, each equal
+    to the sequential reference, beside a new stream."""
+    from repro_torch.checkpoint.solve import SolveCheckpoint
+    from repro_torch.launch import serve
+    from repro_torch.problems.sequential import solve_sequential_max_clique
+
+    d = str(tmp_path / "ck")
+    out = serve.main(["--smoke", "--device", "cpu", "--requests", "6", "--json",
+                      "--checkpoint-dir", d, "--checkpoint-every", "1"])
+    assert out["resumed_tickets"] == 0
+    step_dir = sorted(tmp_path.glob("ck/step_*"))[0]
+    ck = SolveCheckpoint.load(str(step_dir))
+    owed = sorted(
+        [m["ticket"] for p in ck.meta["planes"] for m in p["requests"] if m is not None]
+        + [m["ticket"] for m in ck.meta["queue"]]
+    )
+    assert owed
+    back = serve.main(["--smoke", "--device", "cpu", "--requests", "2", "--json",
+                       "--resume", str(step_dir)])
+    assert back["resumed_tickets"] == len(owed)
+    assert back["resumed_best_sizes"] == [
+        solve_sequential_max_clique(ck.unpack_graph(t))[0] for t in owed
+    ]
+    assert len(back["best_sizes"]) == 2
