@@ -104,7 +104,32 @@ Phases (any failed check raises, so the exit code is not 0):
    seed 1 is evicted at 32 equal to its capped solo solve; (e) the JAX
    package's checkpoint ``src/repro_torch/data/ckpt_jax_vc`` resumed to
    its record.  The kernels line gives the resumes' launches as
-   ``resume_launches``.
+   ``resume_launches``;
+13. frontier spill (run after phase 12) — the host cold tier at the paper's
+   size.  The capacity C of each spilled path is 3/4 of its unsaturated
+   run's peak per-worker pending over its chunk boundaries, and at least
+   the no-drop headroom of one chunk plus 2; the paper size's peak (phase
+   7's is printed) is under that headroom at 32 explore rounds a superstep,
+   so the spilled paths run 8 (max clique: 2) a superstep, a chunk a
+   superstep.  (a) G(600, 4/599, seed 0), 128 workers: phase 7's shape at
+   a chunk a superstep (no capacity under its peak keeps the headroom), the
+   unsaturated reference (best 304, its peak, C), the starved solve at C
+   without spill
+   (it drops tasks) and the spilled one at C, twice: no drop, every spilled
+   task readmitted, best 304, the cover verifies, both runs identical,
+   counters included, one ``vc_expand`` per explore round; its wall against
+   the unsaturated one, its pumps, their time and the bytes they move each
+   way; (b) max clique on ``p_hat_like(300, 0.325, seed 0)`` spilled: phase
+   4's optimum, no drop, one ``clique_expand`` per explore round; (c)
+   seeds 0 and 1 in 2 lanes through ``solve_many`` and ``SolveService``:
+   seed 0's lane equals its spilled solo solve, the service's lanes equal
+   solve_many's, spill counters included, no drop; (d) (a)'s spilled solve
+   with a checkpoint every 16 chunks resumed from one whose cold tier holds
+   records; (e) ``src/repro_torch/data/golden_spill.json`` (JAX records of
+   spilled solves at n = 40-48) reproduced exactly and the JAX-written
+   mid-spill checkpoint ``src/repro_torch/data/ckpt_jax_vc_spill``
+   resumed to its record.  The kernels line gives the spilled paths'
+   launches as ``spill_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -750,8 +775,9 @@ def phase_batch(dev, solo_n300: dict) -> dict:
     return record(r1)
 
 
-def phase_paper(dev, max_rounds: int) -> dict:
-    """The main path at the paper's size, twice; returns its launch counts."""
+def phase_paper(dev, max_rounds: int) -> tuple:
+    """The main path at the paper's size, twice; returns its launch counts,
+    its record and its peak per-worker pending over its chunk boundaries."""
     from repro_torch.api import SolveConfig, SolverSession
     from repro_torch.graphs.generators import erdos_renyi
     from repro_torch.kernels import counts
@@ -761,7 +787,8 @@ def phase_paper(dev, max_rounds: int) -> dict:
     # max_rounds is checked per chunk, so the chunk is cut with it
     cfg = SolveConfig(num_workers=PAPER_WORKERS, max_rounds=max_rounds,
                       chunk_rounds=min(16, max_rounds))
-    session = SolverSession(config=cfg, device=dev)
+    cache = _hot_cache()
+    session = SolverSession(config=cfg, cache=cache, device=dev)
     print(f"[smoke] paper size: G(n={g.n}, p=4/599, seed 0), m={g.num_edges}, "
           f"{PAPER_WORKERS} workers, max_rounds={max_rounds}")
     runs = []
@@ -792,7 +819,7 @@ def phase_paper(dev, max_rounds: int) -> dict:
     check(launches == {"vc_expand": explore_rounds},
           f"the main path launched {launches}: want one vc_expand per explore round "
           f"({explore_rounds}) and nothing else")
-    return launches, runs[0]
+    return launches, runs[0], max(cache.peaks)
 
 
 # -- the live solve service (phase 11) --------------------------------------------
@@ -1225,6 +1252,353 @@ def phase_durability(dev, paper: dict, batch_seed1: dict, capped_seed1: dict,
         out["vc_expand"] += launches.get("vc_expand", 0)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# -- frontier spill on the card (phase 13) ----------------------------------------
+#
+# The hot capacity C of the spilled solves is taken from the unsaturated run
+# itself: its peak per-worker pending over the chunk boundaries (where the
+# pump looks), C = 3/4 of it.  Below the peak, the same solve without spill
+# must drop tasks; C must also leave the no-drop headroom of one chunk
+# (chunk_headroom + 2 slots), so the spilled paths run a chunk a superstep
+# and fewer explore rounds a superstep than phase 7.
+
+SPILL_FRACTION = 0.75
+# the spilled paths' chunk shapes: at 32 explore rounds a superstep the paper
+# size's peak is under the headroom of one chunk even at a chunk a superstep
+# (34 + 2 slots; phase 13 (a) shows it), at 8 the headroom is 10; max
+# clique's per-worker pending at 128 workers stays under 10, so its spilled
+# path runs 2 explore rounds a superstep (headroom 4)
+SPILL_VC = dict(steps_per_round=8, chunk_rounds=1)
+SPILL_CLIQUE = dict(steps_per_round=2, chunk_rounds=1)
+
+
+def spill_record(r) -> dict:
+    """``record`` plus the drop and spill counters (the keys of
+    ``golden_spill.json`` and ``ckpt_jax_vc_spill/record.json``)."""
+    s = r.stats
+    return {**record(r), "overflow_count": int(s.overflow_count),
+            "spilled_tasks": int(s.spilled_tasks),
+            "readmitted_tasks": int(s.readmitted_tasks),
+            "cold_bytes_peak": int(s.cold_bytes_peak)}
+
+
+def _spill_extra(r) -> dict:
+    return {k: v for k, v in spill_record(r).items() if k not in record(r)}
+
+
+def _hot_cache():
+    """A plane cache whose planes record, per chunk, the largest per-worker
+    pending count (``hot``) in ``peaks``."""
+    from repro_torch.api import PlaneCache
+
+    class HotCache(PlaneCache):
+        def __init__(self):
+            super().__init__()
+            self.peaks = []
+
+        def _get(self, *a):
+            plane = super()._get(*a)
+
+            def recorded(*args, **kw):
+                out = plane(*args, **kw)
+                self.peaks.append(int(out[-1].max()))
+                return out
+
+            return recorded
+
+    return HotCache()
+
+
+@contextlib.contextmanager
+def _pump_meter():
+    """Count and time the spill pumps (each synchronised at its end) and the
+    bytes their pool reads and write-backs move between the card and the
+    host; yields the running totals."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import frontier, spill
+
+    m = {"pumps": 0, "pump_s": 0.0, "reads": 0, "d2h_bytes": 0, "writes": 0,
+         "h2d_bytes": 0}
+    saved = {name: getattr(owner, name) for owner, name in (
+        (spill.FrontierSpiller, "pump_frontier"), (spill.FrontierSpiller, "pump_lane"),
+        (frontier, "read_pool"), (frontier, "write_pool"))}
+
+    def pump(fn):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            m["pumps"] += 1
+            m["pump_s"] += time.perf_counter() - t
+            return out
+        return timed
+
+    def read(f, lane=None):
+        arrays = saved["read_pool"](f, lane)
+        m["reads"] += 1
+        m["d2h_bytes"] += sum(a.nbytes for a in arrays)
+        return arrays
+
+    def write(f, masks, sols, depths, active, lane=None):
+        m["writes"] += 1
+        m["h2d_bytes"] += sum(np.asarray(a).nbytes for a in (masks, sols, depths, active))
+        return saved["write_pool"](f, masks, sols, depths, active, lane)
+
+    spill.FrontierSpiller.pump_frontier = pump(saved["pump_frontier"])
+    spill.FrontierSpiller.pump_lane = pump(saved["pump_lane"])
+    frontier.read_pool = read
+    frontier.write_pool = write
+    try:
+        yield m
+    finally:
+        spill.FrontierSpiller.pump_frontier = saved["pump_frontier"]
+        spill.FrontierSpiller.pump_lane = saved["pump_lane"]
+        frontier.read_pool = saved["read_pool"]
+        frontier.write_pool = saved["write_pool"]
+
+
+def _meter_line(m: dict) -> str:
+    return (f"{m['pumps']} pumps in {m['pump_s']:.3f} s; {m['reads']} pool reads "
+            f"{m['d2h_bytes']} bytes to the host, {m['writes']} write-backs "
+            f"{m['h2d_bytes']} bytes to the card")
+
+
+def _reference(label: str, problem: str, g, kw: dict, dev, need_room: bool = True) -> tuple:
+    """The unsaturated reference of a spilled path: its solve at ``kw``,
+    with the peak per-worker pending over its chunk boundaries (where the
+    pump looks).  Returns (its spill_record, the peak, the capacity C =
+    SPILL_FRACTION of the peak, its wall); where C would not lie between
+    the no-drop headroom and the peak, C is None, and with ``need_room``
+    the phase fails."""
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.core.spill import chunk_headroom
+
+    cfg = SolveConfig(**kw)
+    head = chunk_headroom(chunk_rounds=cfg.chunk_rounds, steps_per_round=cfg.steps_per_round,
+                          lanes=cfg.lanes, donate_k=cfg.donate_k)
+    cache = _hot_cache()
+    t = time.perf_counter()
+    r = SolverSession(problem=problem, config=cfg, cache=cache, device=dev).solve(g)
+    wall = time.perf_counter() - t
+    rec = spill_record(r)
+    check(rec["overflow_count"] == 0, f"{label} unsaturated dropped tasks: {rec}")
+    peak = max(cache.peaks)
+    C = max(head + 2, int(SPILL_FRACTION * peak))
+    if C >= peak:
+        check(not need_room, f"{label}: the unsaturated peak {peak} leaves no capacity "
+                             f"between the headroom {head} + 2 and the peak")
+        C = None
+    print(f"[smoke] spill {label} unsaturated at {kw}: best={rec['best_size']} "
+          f"rounds={rec['rounds']} in {wall:.3f} s; peak per-worker pending over "
+          f"{len(cache.peaks)} chunk boundaries {peak}, headroom {head}: C = "
+          f"{C if C is not None else 'none (no room under the peak)'}")
+    return rec, peak, C, wall
+
+
+def _spilled(label: str, problem: str, g, cfg, dev, kernel: str) -> tuple:
+    """One spilled solve on the card: no drop, every spilled task readmitted,
+    one ``kernel`` launch per explore round.  Returns (result, spill_record,
+    wall, pump meter)."""
+    from repro_torch.api import SolverSession
+    from repro_torch.kernels import counts
+
+    counts.reset()
+    with _pump_meter() as m:
+        t = time.perf_counter()
+        r = SolverSession(problem=problem, config=cfg, device=dev).solve(g)
+        wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    rec = spill_record(r)
+    check(rec["overflow_count"] == 0 and not rec["overflow"],
+          f"{label}: the spilled solve dropped {rec['overflow_count']} tasks")
+    check(rec["spilled_tasks"] > 0 and rec["readmitted_tasks"] == rec["spilled_tasks"],
+          f"{label}: spilled {rec['spilled_tasks']}, readmitted {rec['readmitted_tasks']}")
+    explore_rounds = r.rounds * cfg.steps_per_round
+    check(launches == {kernel: explore_rounds},
+          f"{label}: the spilled solve launched {launches}: want one {kernel} per explore "
+          f"round ({explore_rounds}) and nothing else")
+    return r, rec, wall, m, launches
+
+
+def _cold_rows(arrays: dict) -> int:
+    return sum(v.shape[0] for k, v in arrays.items()
+               if k.rsplit("/", 1)[-1].startswith("spill") and ".w" in k)
+
+
+def _build_graph(spec: dict):
+    from repro_torch.graphs import generators
+
+    return getattr(generators, spec["generator"])(
+        **{k: v for k, v in spec.items() if k != "generator"})
+
+
+def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
+    """Frontier spill on the card: (a) the paper's size solo, unsaturated,
+    starved and spilled (twice); (b) max clique spilled; (c) the paper size
+    in 2 lanes through ``solve_many`` and ``SolveService``, spilled; (d) (a)'s
+    spilled solve resumed from a checkpoint whose cold tier holds records;
+    (e) the JAX-made ``golden_spill.json`` and the JAX-written mid-spill
+    checkpoint.  Returns each kernel's launches on the spilled paths."""
+    from repro_torch.api import SolveConfig, SolverSession, SolveService
+    from repro_torch.checkpoint.solve import SolveCheckpoint
+    from repro_torch.core.spill import chunk_headroom
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import counts
+    from repro_torch.problems.sequential import verify_clique, verify_cover
+
+    out = {"vc_expand": 0, "clique_expand": 0}
+    head16 = chunk_headroom(chunk_rounds=16, steps_per_round=32, lanes=1, donate_k=1)
+    print(f"[smoke] spill: phase 7's peak per-worker pending over its chunk boundaries "
+          f"is {paper_peak}, under one chunk's headroom of {head16} + 2 slots")
+
+    # (a) the paper's size, solo: phase 7's shape a chunk a superstep has no
+    # room either; the spilled shape's unsaturated reference, the starved
+    # solve and the spilled one, twice
+    g = erdos_renyi(**PAPER_GRAPH)
+    base = dict(num_workers=PAPER_WORKERS, max_rounds=max_rounds)
+    _reference("paper size", "vertex_cover", g, {**base, "chunk_rounds": 1}, dev,
+               need_room=False)
+    kw = {**base, **SPILL_VC}
+    unsat, peak, C, wall_unsat = _reference("paper size", "vertex_cover", g, kw, dev)
+    check(unsat["best_size"] == paper["best_size"],
+          f"paper size at {kw}: best {unsat['best_size']} != phase 7's {paper['best_size']}")
+    cfg = SolveConfig(**kw, capacity=C)
+    starved = SolverSession(config=cfg, device=dev).solve(g)
+    check(starved.stats.overflow_count > 0,
+          f"paper size starved at C={C}: no task dropped (peak {peak})")
+    spilled_cfg = cfg.replace(frontier_spill=True)
+    runs = []
+    for i in range(2):
+        r, rec, wall, m, launches = _spilled(f"paper size run {i}", "vertex_cover", g,
+                                             spilled_cfg, dev, "vc_expand")
+        check(rec["best_size"] == paper["best_size"] and verify_cover(g, r.best_sol),
+              f"paper size spilled run {i}: best {rec['best_size']} (want "
+              f"{paper['best_size']}) or its cover does not verify")
+        if i == 0:
+            out["vc_expand"] += launches["vc_expand"]
+        runs.append(rec)
+        print(f"[smoke] spill paper size run {i}: C={C}: best={rec['best_size']} rounds="
+              f"{rec['rounds']} nodes={rec['nodes_expanded']} spilled={rec['spilled_tasks']} "
+              f"readmitted={rec['readmitted_tasks']} cold_peak={rec['cold_bytes_peak']}B "
+              f"overflow=0; wall {wall:.3f} s = {wall / wall_unsat:.3f}x the unsaturated "
+              f"{wall_unsat:.3f} s; {_meter_line(m)}; launches={launches}")
+    check(runs[0] == runs[1], f"paper size spilled runs differ: {runs[0]} vs {runs[1]}")
+    print(f"[smoke] spill paper size: starved at C={C} dropped "
+          f"{starved.stats.overflow_count} tasks (best {starved.best_size}); spilled at the "
+          f"same C dropped none, twice identical")
+
+    # (b) max clique, spilled
+    golden = json.loads(
+        (ROOT / "src" / "repro_torch" / "data" / "golden_clique.json").read_text()
+    )["max_clique"]
+    gc = _build_graph(golden["graph"])
+    ckw = {**golden["solve_kw"], **SPILL_CLIQUE}
+    cunsat, cpeak, cC, cwall = _reference("max clique", "max_clique", gc, ckw, dev)
+    check(cunsat["best_size"] == golden["result"]["best_size"],
+          f"max clique at {ckw}: best {cunsat['best_size']} != phase 4's")
+    r, rec, wall, m, launches = _spilled(
+        "max clique", "max_clique", gc, SolveConfig(**ckw, capacity=cC, frontier_spill=True),
+        dev, "clique_expand")
+    check(rec["best_size"] == golden["result"]["best_size"] and verify_clique(gc, r.best_sol),
+          f"max clique spilled: best {rec['best_size']} != phase 4's or no clique")
+    out["clique_expand"] += launches["clique_expand"]
+    print(f"[smoke] spill max clique {golden['graph']}: C={cC}: best={rec['best_size']} "
+          f"== phase 4, rounds={rec['rounds']} spilled={rec['spilled_tasks']} "
+          f"cold_peak={rec['cold_bytes_peak']}B overflow=0; wall {wall:.3f} s = "
+          f"{wall / cwall:.3f}x the unsaturated {cwall:.3f} s; {_meter_line(m)}; "
+          f"launches={launches}")
+
+    # (c) the paper size in 2 lanes, solve_many and the service, spilled.
+    # Seed 1 does not finish exact in 1,600 supersteps of 32 explore rounds
+    # (an H100 run), so its anytime lane is held to its solve_many twin;
+    # seed 0's lane equals its spilled solo solve
+    g1 = erdos_renyi(**{**PAPER_GRAPH, "seed": 1})
+    counts.reset()
+    with _pump_meter() as m:
+        t = time.perf_counter()
+        batch = SolverSession(config=spilled_cfg, device=dev).solve_many([g, g1])
+        wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    recs = [spill_record(x) for x in batch.results]
+    ran = max(x["rounds"] for x in recs)  # 2 lanes never compact
+    check(batch.compactions == 0 and launches == {"vc_expand": ran * cfg.steps_per_round},
+          f"spilled batch: {launches} in {ran} plane supersteps")
+    out["vc_expand"] += launches["vc_expand"]
+    check(recs[0] == runs[0], f"spilled batch seed 0: {recs[0]} != its solo {runs[0]}")
+    check(recs[1]["overflow_count"] == 0 and recs[1]["spilled_tasks"] > 0
+          and verify_cover(g1, batch.results[1].best_sol),
+          f"spilled batch seed 1: {recs[1]}")
+    print(f"[smoke] spill solve_many G(600, 4/599, seeds 0, 1), 2 lanes: seed 0 == its "
+          f"spilled solo solve (best {recs[0]['best_size']}), seed 1 best "
+          f"{recs[1]['best_size']} in {recs[1]['rounds']} supersteps (cap {max_rounds}), spilled "
+          f"{[x['spilled_tasks'] for x in recs]}, no drop; wall {wall:.3f} s; "
+          f"{_meter_line(m)}; launches={launches}")
+    svc = SolveService("vertex_cover", spilled_cfg.replace(service_lanes=2), device=dev)
+    tickets = [svc.submit(x) for x in (g, g1)]
+    counts.reset()
+    with _pump_meter() as m:
+        t = time.perf_counter()
+        svc.drain()
+        wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    srecs = [spill_record(svc.result(tk)) for tk in tickets]
+    check(srecs == recs, f"spilled service: {srecs} != solve_many's {recs}")
+    _per_explore_round(launches, "vc_expand", cfg.steps_per_round, svc,
+                       [x["rounds"] for x in srecs])
+    out["vc_expand"] += launches["vc_expand"]
+    print(f"[smoke] spill service, 2 lanes: both tickets == solve_many's lanes, spilled "
+          f"counts included; wall {wall:.3f} s; {_meter_line(m)}; launches={launches}")
+
+    # (d) durability: (a)'s spilled solve with a checkpoint every 16 chunks,
+    # resumed from a checkpoint whose cold tier holds records
+    root = tempfile.mkdtemp(prefix="smoke_spill_")
+    try:
+        d = os.path.join(root, "paper")
+        r = SolverSession(config=spilled_cfg.replace(checkpoint_every=16), device=dev).solve(
+            g, checkpoint_dir=d)
+        check(spill_record(r) == runs[0], "durable spilled solve differs from (a)'s")
+        cold = [(p, _cold_rows(SolveCheckpoint.load(str(p)).arrays)) for p in _step_dirs(d)]
+        held = [p for p, n in cold if n]
+        check(held, f"no checkpoint of the spilled solve holds a cold record: {cold}")
+        step_dir = held[len(held) // 2]
+        launches, _ = _resume_checked("spilled paper size", step_dir, [runs[0]], "vc_expand",
+                                      dev, extra=_spill_extra)
+        out["vc_expand"] += launches["vc_expand"]
+        sizes = [_dir_bytes(p) for p, _ in cold]
+        print(f"[smoke] spill durability: {len(cold)} checkpoints of {min(sizes)}-{max(sizes)} "
+              f"bytes, {len(held)} with cold records; resumed from {step_dir.name} "
+              f"({dict(cold)[step_dir]} cold records, {_dir_bytes(step_dir)} bytes)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) held against the JAX package: golden_spill.json and its checkpoint
+    data = ROOT / "src" / "repro_torch" / "data"
+    for name, case in json.loads((data / "golden_spill.json").read_text()).items():
+        session = SolverSession(config=SolveConfig(**case["solve_kw"]), device=dev)
+        graphs = [_build_graph(x) for x in case["graphs"]]
+        counts.reset()
+        if len(graphs) == 1:
+            got = [spill_record(session.solve(graphs[0]))]
+        else:
+            got = [spill_record(x) for x in session.solve_many(graphs).results]
+        launches = counts.snapshot()
+        check(got == case["results"], f"golden_spill {name}: {got} != {case['results']}")
+        check(set(launches) == {"vc_expand"}, f"golden_spill {name}: launched {launches}")
+        out["vc_expand"] += launches["vc_expand"]
+    fixture = data / "ckpt_jax_vc_spill"
+    doc = json.loads((fixture / "record.json").read_text())
+    check(_cold_rows(SolveCheckpoint.load(str(fixture / f"step_{doc['step']}")).arrays)
+          == doc["cold_records"] > 0, "the JAX-written spill checkpoint holds no cold record")
+    launches, _ = _resume_checked("JAX-written spill checkpoint", fixture / f"step_{doc['step']}",
+                                  [doc["result"]], "vc_expand", dev, extra=_spill_extra)
+    out["vc_expand"] += launches["vc_expand"]
+    print(f"[smoke] spill: golden_spill.json's cases reproduce exactly; the JAX-written "
+          f"checkpoint (step {doc['step']}, {doc['cold_records']} cold records) resumes to "
+          f"its record")
     return out
 
 
@@ -1799,7 +2173,7 @@ def main() -> None:
     solo_n300 = timed("goldens", phase_goldens, dev)
     clique = timed("clique_mis", phase_clique_goldens, dev)
     batch_seed1 = timed("batch", phase_batch, dev, solo_n300)
-    launches, paper = timed("paper", phase_paper, dev, args.paper_max_rounds)
+    launches, paper, paper_peak = timed("paper", phase_paper, dev, args.paper_max_rounds)
     service = timed("service", phase_service, dev, paper, args.paper_max_rounds)
     resumed = timed("durability", phase_durability, dev, paper, batch_seed1,
                     service["capped"], args.paper_max_rounds)
@@ -1829,6 +2203,17 @@ def main() -> None:
     kernels["clique_expand"]["resume_path"] = "max clique exact solve resumed mid-solve, phase 12"
     for name in ("vc_expand", "clique_expand"):
         check(kernels[name]["resume_launches"] > 0, f"no resume launched {name}")
+    # and the spilled solves their fourth
+    spilled = timed("spill", phase_spill, dev, paper, paper_peak, args.paper_max_rounds)
+    kernels["vc_expand"]["spill_launches"] = spilled["vc_expand"]
+    kernels["vc_expand"]["spill_path"] = (
+        "frontier spill: the paper size solo (twice), in 2 lanes through solve_many and "
+        "the service, resumed mid-spill, golden_spill.json and the JAX-written spill "
+        "checkpoint, phase 13")
+    kernels["clique_expand"]["spill_launches"] = spilled["clique_expand"]
+    kernels["clique_expand"]["spill_path"] = "max clique exact solve, spilled, phase 13"
+    for name in ("vc_expand", "clique_expand"):
+        check(kernels[name]["spill_launches"] > 0, f"no spilled path launched {name}")
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

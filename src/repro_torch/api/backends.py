@@ -10,7 +10,11 @@ both are durable: ``checkpoint_dir`` writes a
 :class:`~repro_torch.checkpoint.solve.SolveCheckpoint` every
 ``checkpoint_every`` chunks at the host-sync boundary, and ``resume_from``
 continues from one (either package's) to the result of a run that never
-stopped.
+stopped.  With ``frontier_spill`` each instance gets a
+:class:`~repro_torch.core.spill.FrontierSpiller`: after a chunk its host
+pump evicts above the high-water mark into the cold tier and refills below
+the low one, so a saturated frontier drops nothing, and the cold tier rides
+in the checkpoints.
 
 Features of the JAX drivers that the port does not carry yet are refused
 with ``NotImplementedError`` naming their ROADMAP item; none is silently
@@ -36,6 +40,7 @@ from repro_torch.api.result import (
 from repro_torch.checkpoint import solve as _ckpt
 from repro_torch.core import engine as _engine
 from repro_torch.core.encoding import make_codec
+from repro_torch.core.spill import FrontierSpiller, make_spiller, pump_lanes
 from repro_torch.core.superstep import (
     LaneState,
     lane_state_from_flat,
@@ -53,8 +58,6 @@ from repro_torch.problems.base import WorkCounters
 
 # config knobs / arguments the port refuses, with the ROADMAP item that ports them
 _NOT_PORTED = {
-    "frontier_spill": "queue 1, item 10 (codecs + frontier spill)",
-    "spill state in a checkpoint": "queue 1, item 10 (codecs + frontier spill)",
     "use_mesh": "queue 1, item 13 (multi-device path)",
     "mesh": "queue 1, item 13 (multi-device path)",
     "injector": "queue 1, item 11 (fault wiring)",
@@ -68,17 +71,8 @@ def _refuse(what: str) -> None:
 
 
 def _refuse_unported(cfg: SolveConfig, injector) -> None:
-    if cfg.frontier_spill:
-        _refuse("frontier_spill")
     if injector is not None:
         _refuse("injector")
-
-
-def _refuse_spill_arrays(arrays: dict) -> None:
-    """A checkpoint holding a frontier spiller's cold tier (the JAX
-    package's ``spill…`` arrays) cannot resume here without dropping it."""
-    if any(name.rsplit("/", 1)[-1].startswith("spill") for name in arrays):
-        _refuse("spill state in a checkpoint")
 
 
 def _load_resume(cfg: SolveConfig, kind: str, fingerprint: str, verb: str,
@@ -95,14 +89,14 @@ def _load_resume(cfg: SolveConfig, kind: str, fingerprint: str, verb: str,
             f"{cfg.resume_from} holds a {ck.kind!r} checkpoint; "
             f"{verb}() resumes {kind!r} checkpoints only"
         )
-    _refuse_spill_arrays(ck.arrays)
     return ck
 
 
 def _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
-                           reduce_sweeps) -> None:
-    """One atomic SolveCheckpoint of a solo solve at a chunk boundary; the
-    port's running ``reduce_sweeps`` rides in its meta."""
+                           reduce_sweeps, spill=None) -> None:
+    """One atomic SolveCheckpoint of a solo solve at a chunk boundary, the
+    cold tier of ``spill`` included; the port's running ``reduce_sweeps``
+    rides in its meta."""
     ck = _ckpt.SolveCheckpoint(
         kind="solo",
         problem=spec.name,
@@ -112,6 +106,8 @@ def _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
         arrays=worker_state_to_flat(state),
         meta={"reduce_sweeps": reduce_sweeps},
     )
+    if spill is not None:
+        ck.arrays.update(spill.to_flat())
     ck.pack_graphs([0], [g])
     ck.save(cfg.checkpoint_dir, rounds)
 
@@ -145,7 +141,15 @@ def solve_spmd(
     is deterministic, so the result equals an uninterrupted run's (modulo
     ``wall_s`` and the durability bookkeeping).  ``reduce_sweeps`` resumes
     from the running sum a port checkpoint keeps in its meta; a JAX
-    checkpoint has none, so there it counts from the resume."""
+    checkpoint has none, so there it counts from the resume.
+
+    Spill: with ``cfg.frontier_spill`` a spiller is built for the state's
+    capacity (an undersized capacity raises ``ValueError`` here, at solve
+    start), loaded from the checkpoint's cold tier on resume.  After a
+    chunk whose (P,) hot counts call for it, the pump runs, unless the FPT
+    bound was hit (that finishes the solve whatever the backlog), and the
+    solve is done only when the plane was done and the pump left nothing
+    pending."""
     _refuse_unported(cfg, injector)
     if cfg.use_mesh:
         _refuse("use_mesh")
@@ -167,6 +171,7 @@ def solve_spmd(
 
     data = problems_base.make_data(spec, g, device)
     rounds = 0
+    ck = None
     if cfg.resume_from is not None:
         if initial_state is not None:
             raise ValueError("pass resume_from or initial_state, not both")
@@ -183,6 +188,11 @@ def solve_spmd(
     else:
         state = state_to(initial_state, device)
         cap = int(state.frontier.masks.shape[-2])
+    spill = None
+    if cfg.frontier_spill:
+        spill = make_spiller(cfg, spec, g, cap, cfg.num_workers)
+        if ck is not None and FrontierSpiller.present_in(ck.arrays):
+            spill.load_flat(ck.arrays)
     plane = cache.solo_plane(spec, cfg, pad, use_fpt)
     cache.note("solo", spec, cfg, pad, use_fpt, (g.n, W, cap, cfg.num_workers))
 
@@ -190,14 +200,21 @@ def solve_spmd(
     chunks = 0
     checkpoints_written = 0
     while rounds < cfg.max_rounds:
-        state, done, ran, _ = plane(data, state, fpt_bound, counters)
+        state, done, ran, hot = plane(data, state, fpt_bound, counters)
         rounds += ran
         chunks += 1
+        if spill is not None and spill.wants_pump(hot.cpu().numpy(), done):
+            # an FPT bound hit finishes the solve whatever the cold backlog;
+            # quiescence without it must refill and continue
+            fpt_hit = done and use_fpt and int(state.best_val.min()) <= fpt_bound
+            if not fpt_hit:
+                _, hot_h = spill.pump_frontier(state.frontier)
+                done = done and int(hot_h.sum()) == 0
         if done:
             break
         if cfg.checkpoint_dir is not None and chunks % cfg.checkpoint_every == 0:
             _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
-                                   counters.reduce_sweeps)
+                                   counters.reduce_sweeps, spill)
             checkpoints_written += 1
     host = _engine._fetch_batch_state(map_state(lambda x: x[None], state))
     wall = time.perf_counter() - t0
@@ -217,7 +234,16 @@ def solve_spmd(
     r.reduce_sweeps = counters.reduce_sweeps
     r.checkpoints_written = checkpoints_written
     r.resumed_from = cfg.resume_from
+    _patch_spill(r, spill)
     return r
+
+
+def _patch_spill(r, spill) -> None:
+    """Copy a spiller's counters into an EngineResult (no-op without one)."""
+    if spill is not None:
+        r.spilled_tasks = spill.spilled_total
+        r.readmitted_tasks = spill.readmitted_total
+        r.cold_bytes_peak = spill.cold_bytes_peak
 
 
 def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
@@ -244,7 +270,15 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
     restarts mid-bucket.  Results are finalized eagerly (at compaction and
     at the bucket's end), so a checkpoint never needs a lane that was
     compacted away; ``wall_s`` is the one result field outside the
-    bit-identity contract."""
+    bit-identity contract.
+
+    Spill: with ``cfg.frontier_spill`` each lane has its own spiller (built
+    at the bucket's start, or from the checkpoint's ``spill{lane}`` arrays
+    on resume), pumped after each chunk by
+    :func:`~repro_torch.core.spill.pump_lanes` (the service's pump too),
+    which resumes a done lane it refilled.  Compaction slices the spillers
+    with their lanes, and each collected result carries its lane's spill
+    counters."""
     _refuse_unported(cfg, injector)
     if cfg.use_mesh:
         raise ValueError(
@@ -298,15 +332,31 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
             packed_status=cfg.packed_status,
         )
 
-    def collect(lanes, which):
+    def collect(lanes, which, spillers):
         host = _engine._fetch_batch_state(lanes.worker)
         rounds_h = lanes.rounds.cpu().numpy()
         for lane in which:
             oi = int(lanes.tag[lane])
             if oi not in results:
                 results[oi] = extract(host, lane, oi, int(rounds_h[lane]))
+                _patch_spill(results[oi], spillers[lane])
 
-    def write_checkpoint(bi, lanes, datas, fpt_bounds, total_ran):
+    def make_spillers(lanes, cap, arrays=None):
+        """One spiller per lane of capacity ``cap`` (None each without
+        spill), loaded from a checkpoint's ``spill{lane}`` arrays when
+        ``arrays`` holds them."""
+        if not cfg.frontier_spill:
+            return [None] * lanes.num_lanes
+        spillers = []
+        for lane in range(lanes.num_lanes):
+            sp = make_spiller(cfg, spec, graphs[int(lanes.tag[lane])], cap,
+                              cfg.num_workers)
+            if arrays is not None and FrontierSpiller.present_in(arrays, f"spill{lane}"):
+                sp.load_flat(arrays, f"spill{lane}")
+            spillers.append(sp)
+        return spillers
+
+    def write_checkpoint(bi, lanes, datas, fpt_bounds, total_ran, spillers):
         ck = _ckpt.SolveCheckpoint(
             kind="many",
             problem=spec.name,
@@ -332,6 +382,9 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
         ck.arrays.update(_ckpt.data_to_flat(datas, "datas"))
         if fpt_bounds is not None:
             ck.arrays["fpt_bounds"] = fpt_bounds.cpu().numpy()
+        for lane, sp in enumerate(spillers):
+            if sp is not None:
+                ck.arrays.update(sp.to_flat(f"spill{lane}"))
         ck.pack_graphs(range(B), graphs)
         ck.save(cfg.checkpoint_dir, chunks_total)
 
@@ -356,6 +409,7 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
                 ).to(device)
             total_ran = int(resume_ck.meta["total_ran"])
             live_h = ~lanes.done.cpu().numpy()
+            spillers = make_spillers(lanes, cap, resume_ck.arrays)
         else:
             initial_bests = [
                 problems_base.initial_bound(spec, graphs[i], cfg.mode, ks[i])
@@ -378,6 +432,7 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
                 )
             total_ran = 0
             live_h = np.ones(len(idxs), bool)  # live entering the next chunk
+            spillers = make_spillers(lanes, cap)
         plane = cache.batch_plane(spec, cfg, pad, use_fpt)
 
         def note(n_lanes):
@@ -389,10 +444,12 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
             lane_stats["chunk_calls"] += 1
             lane_stats["lane_chunks"] += lanes.num_lanes
             lane_stats["live_lane_chunks"] += int(live_h.sum())
-            lanes, ran, _ = step_lanes(plane, datas, lanes, fpt_bounds, counters)
+            lanes, ran, hot = step_lanes(plane, datas, lanes, fpt_bounds, counters)
             total_ran += ran
             chunks_total += 1
             done_h = lanes.done.cpu().numpy()
+            if cfg.frontier_spill:
+                pump_lanes(lanes, spillers, done_h, hot, fpt_bounds)
             live_h = ~done_h
             if done_h.all():
                 break
@@ -406,20 +463,22 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
                 # collect finished lanes now, keep the live ones plus
                 # finished fillers up to the pow2 target, and reslice
                 fillers = np.flatnonzero(done_h)[: target - n_live]
-                collect(lanes, [i for i in np.flatnonzero(done_h) if i not in fillers])
+                collect(lanes, [i for i in np.flatnonzero(done_h) if i not in fillers],
+                        spillers)
                 sel = np.concatenate([np.flatnonzero(live_h), fillers])
                 lanes = slice_lanes(lanes, sel)
                 datas = problems_base.slice_instances(datas, sel)
+                spillers = [spillers[i] for i in sel]
                 if fpt_bounds is not None:
                     fpt_bounds = fpt_bounds[torch.from_numpy(sel).to(device)]
                 live_h = live_h[sel]
                 compactions += 1
                 note(lanes.num_lanes)
             if cfg.checkpoint_dir is not None and chunks_total % cfg.checkpoint_every == 0:
-                write_checkpoint(bi, lanes, datas, fpt_bounds, total_ran)
+                write_checkpoint(bi, lanes, datas, fpt_bounds, total_ran, spillers)
                 checkpoints_written += 1
 
-        collect(lanes, range(lanes.num_lanes))
+        collect(lanes, range(lanes.num_lanes), spillers)
         bucket_wall = time.perf_counter() - t0
         wall_total += bucket_wall
         for oi in idxs:

@@ -5,9 +5,9 @@ validation, checked against the port's own registries, so one config JSON
 means the same solve in both packages.  The device is not a config field:
 it is an argument of :class:`repro_torch.api.session.SolverSession`.
 
-Knobs whose feature the port does not carry yet (checkpointing, spill,
-mesh, the service and simulator knobs) are validated here as in the JAX
-package; the backend refuses the ones that would change a solo solve.
+Knobs whose feature the port does not carry yet (``use_mesh``, the
+simulator knobs) are validated here as in the JAX package; the backend
+refuses the ones that would change a solve.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class SolveConfig:
     capacity: Optional[int] = None
     compact_threshold: float = 0.25
     use_mesh: bool = False
-    # -- hierarchical frontier memory (repro.core.spill) ----------------------
+    # -- hierarchical frontier memory (repro_torch.core.spill) ----------------
     # spill the device frontier to a codec-compressed host cold tier instead
     # of dropping tasks at saturation; (low, high) watermarks are fractions
     # of the hot capacity, and spill_codec picks the §4.3 record encoding

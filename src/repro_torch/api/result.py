@@ -56,6 +56,12 @@ class SolveStats:
     # -- durability (spmd checkpoint/resume) ----------------------------------
     checkpoints_written: int = 0
     resumed_from: Optional[str] = None
+    # -- hierarchical frontier memory (spmd, cfg.frontier_spill) --------------
+    # tasks evicted to / re-admitted from the host cold tier and its peak
+    # encoded size; with spill on, overflow_count stays 0 by construction
+    spilled_tasks: int = 0
+    readmitted_tasks: int = 0
+    cold_bytes_peak: int = 0
     # reduction sweeps: the sum over explore rounds of the largest per-lane
     # trip count of the reduction loop (the JAX package's vmapped
     # while_loop runs that many).  Solo solves only: a batch's rounds serve
@@ -71,8 +77,7 @@ class SolveStats:
     @classmethod
     def from_dict(cls, d: dict) -> "SolveStats":
         """From either package's ``to_dict``: fields the port does not
-        carry (the JAX package's simulator and spill counters) are
-        ignored."""
+        carry (the JAX package's simulator counters) are ignored."""
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in known and k != "service"}
         service = d.get("service")
@@ -188,6 +193,9 @@ def from_engine_result(r, *, problem: str, backend: str = "spmd") -> SolveResult
             transfer_bytes_per_round=r.transfer_bytes_per_round,
             checkpoints_written=r.checkpoints_written,
             resumed_from=r.resumed_from,
+            spilled_tasks=r.spilled_tasks,
+            readmitted_tasks=r.readmitted_tasks,
+            cold_bytes_peak=r.cold_bytes_peak,
             reduce_sweeps=r.reduce_sweeps,
         ),
     )

@@ -43,13 +43,17 @@ the finished but unclaimed results and the counters in one atomic
 ``"service"`` checkpoint (``config.checkpoint_dir`` writes one every
 ``checkpoint_every`` steps), and :meth:`SolveService.restore` rebuilds a
 service from one, written by either package, that finishes every ticket as
-the uninterrupted service would.  Per-lane frontier spill
-(``config.frontier_spill``) and fault injection (``injector=``) are not
-ported yet: each raises ``NotImplementedError`` naming its ROADMAP item.
-The JAX service's stall watchdog, lane quarantine and load shedding wait
-with the injector (item 11): on this plane an occupied, unfinished lane
-advances every chunk, so only injected stalls could trip them.  Request
-timeouts run as in the JAX package.
+the uninterrupted service would.  With ``config.frontier_spill`` each
+occupied lane has its own cold tier
+(:class:`~repro_torch.core.spill.FrontierSpiller`, created at admission and
+dropped at retirement, carried by checkpoints), pumped after every chunk
+before the finished verdict, so a lane that went quiescent with a cold
+backlog is refilled and resumed instead of retired.  Fault injection
+(``injector=``) is not ported yet and raises ``NotImplementedError`` naming
+its ROADMAP item.  The JAX service's stall watchdog, lane quarantine and
+load shedding wait with the injector (item 11): on this plane an occupied,
+unfinished lane advances every chunk, so only injected stalls could trip
+them.  Request timeouts run as in the JAX package.
 
 :class:`AsyncSolveService` wraps a service in an asyncio pump for the
 ``launch.serve`` front end: ``await svc.solve(g)`` resolves when the
@@ -66,7 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.api.backends import _refuse, _refuse_spill_arrays
+from repro_torch.api.backends import _patch_spill, _refuse
 from repro_torch.api.cache import PlaneCache
 from repro_torch.api.config import SolveConfig
 from repro_torch.api.result import ServiceStats, SolveResult, from_engine_result
@@ -74,6 +78,7 @@ from repro_torch.api.session import resolve_device
 from repro_torch.checkpoint import solve as _ckpt
 from repro_torch.core import engine as _engine
 from repro_torch.core.encoding import make_codec
+from repro_torch.core.spill import FrontierSpiller, make_spiller, pump_lanes
 from repro_torch.core.superstep import (
     lane_retire,
     lane_state_from_flat,
@@ -228,6 +233,10 @@ class _LivePlane:
         # host-side per-lane occupancy records (None = vacant)
         self.requests: list = [None] * B
         self.admit_s: list = [0.0] * B
+        # per-lane cold tiers (repro_torch.core.spill), created at admission
+        # when cfg.frontier_spill is on; they survive chunks and are dropped
+        # at retirement
+        self.spillers: list = [None] * B
 
     def occupied_count(self) -> int:
         return int(self.lanes.occupied().sum())
@@ -275,8 +284,6 @@ class SolveService:
             )
         if injector is not None:
             _refuse("injector")
-        if self.config.frontier_spill:
-            _refuse("frontier_spill")
         self.cache = cache if cache is not None else PlaneCache()
         self.scheduler = LaneScheduler(
             self.config.admission, self.config.tenant_max_lanes
@@ -488,6 +495,9 @@ class SolveService:
             ck.arrays.update(_ckpt.data_to_flat(plane.datas, f"plane{pi}/datas"))
             if plane.use_fpt:
                 ck.arrays[f"plane{pi}/fpt_bounds"] = plane.fpt_bounds.cpu().numpy()
+            for lane, sp in enumerate(plane.spillers):
+                if sp is not None:
+                    ck.arrays.update(sp.to_flat(f"plane{pi}/spill{lane}"))
             planes_meta.append(
                 {
                     "key": list(key),
@@ -548,7 +558,6 @@ class SolveService:
                 f"{path} holds a {ck.kind!r} checkpoint; "
                 f"SolveService.restore needs a 'service' checkpoint"
             )
-        _refuse_spill_arrays(ck.arrays)
         svc = cls(ck.problem, SolveConfig.from_dict(ck.config), cache=cache,
                   device=device)
         meta = ck.meta
@@ -569,6 +578,14 @@ class SolveService:
             ]
             plane.admit_s = [float(a) for a in pmeta["admit_s"]]
             plane.counters.reduce_sweeps = int(pmeta.get("reduce_sweeps", 0))
+            if svc.config.frontier_spill:
+                for lane, r in enumerate(plane.requests):
+                    pref = f"plane{pi}/spill{lane}"
+                    if r is not None and FrontierSpiller.present_in(ck.arrays, pref):
+                        sp = make_spiller(svc.config, svc.spec, r.g, plane.cap,
+                                          svc.config.num_workers)
+                        sp.load_flat(ck.arrays, pref)
+                        plane.spillers[lane] = sp
             svc._planes[key] = plane
         for m in meta["queue"]:
             svc.scheduler.push(_req_from_meta(m, graphs))
@@ -636,6 +653,8 @@ class SolveService:
             plane.fpt_bounds[lane] = int(spec.fpt_target(req.k))
         plane.requests[lane] = req
         plane.admit_s[lane] = self._clock() - self._t0
+        if cfg.frontier_spill:
+            plane.spillers[lane] = make_spiller(cfg, spec, g, plane.cap, cfg.num_workers)
         self.cache.note(
             "batch",
             spec,
@@ -670,7 +689,7 @@ class SolveService:
         self._stats["lane_chunks"] += plane.lanes.num_lanes
         self._stats["live_lane_chunks"] += int(occupied.sum())
 
-        plane.lanes, ran, _hot = step_lanes(
+        plane.lanes, ran, hot = step_lanes(
             plane.plane, plane.datas, plane.lanes, plane.fpt_bounds, plane.counters
         )
         self._stats["supersteps"] += ran
@@ -678,6 +697,14 @@ class SolveService:
         # superstep already)
         done_h = plane.lanes.done.cpu().numpy()
         rounds_h = plane.lanes.rounds.cpu().numpy()
+        if self.config.frontier_spill:
+            # the pump runs BEFORE the finished verdict: a lane that went
+            # quiescent with a cold backlog is refilled and resumed, not
+            # retired.  Only occupied lanes hold a spiller.  The JAX service
+            # skips a lane its injector stalled this chunk (stale hot
+            # counts); the port has no injector and no stalls yet (ROADMAP
+            # item 11), so there is nothing to skip
+            pump_lanes(plane.lanes, plane.spillers, done_h, hot, plane.fpt_bounds)
 
         now = self._clock() - self._t0
         timeout_s = self.config.request_timeout_s
@@ -725,6 +752,7 @@ class SolveService:
                 num_workers=self.config.num_workers,
                 packed_status=self.config.packed_status,
             )
+            _patch_spill(r, plane.spillers[lane])
             res = from_engine_result(r, problem=self.spec.name, backend="spmd")
             res.stats.service = ServiceStats(
                 lane=lane,
@@ -753,6 +781,7 @@ class SolveService:
             self._stats["residency_s_total"] += now - plane.admit_s[lane]
             lane_retire(plane.lanes, lane)
             plane.requests[lane] = None
+            plane.spillers[lane] = None
         return completed
 
 

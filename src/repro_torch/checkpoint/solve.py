@@ -329,7 +329,12 @@ def _resolve_step(path: str, step: Optional[int]):
 
 
 def engine_result_to_dict(r) -> dict:
+    """The JAX package's ``engine_result_to_dict`` layout, which its
+    ``EngineResult(**d)`` reads back: the port's own ``reduce_sweeps`` is
+    left out (a batch result's is always 0; the batch's sweeps ride in the
+    checkpoint's ``lane_stats``)."""
     d = dataclasses.asdict(r)
+    del d["reduce_sweeps"]
     if r.best_sol is not None:
         d["best_sol"] = [int(w) for w in np.asarray(r.best_sol, np.uint32)]
     return d
@@ -337,9 +342,8 @@ def engine_result_to_dict(r) -> dict:
 
 def engine_result_from_dict(d: dict):
     """An :class:`~repro_torch.core.engine.EngineResult` from either
-    package's dict: the port's fields are taken, the rest (the JAX
-    package's spill counters) ignored; ``reduce_sweeps``, the port's own,
-    is 0 when the dict has none."""
+    package's dict: the port's fields are taken, any other ignored;
+    ``reduce_sweeps``, the port's own, is 0 when the dict has none."""
     from repro_torch.core.engine import EngineResult
 
     known = {f.name for f in dataclasses.fields(EngineResult)}

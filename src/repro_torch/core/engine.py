@@ -49,6 +49,13 @@ class EngineResult:
     # solve loops in repro_torch.api.backends
     checkpoints_written: int = 0
     resumed_from: Optional[str] = None
+    # hierarchical frontier memory (repro_torch.core.spill): tasks evicted
+    # to / re-admitted from the host cold tier, and its peak encoded size;
+    # set by the drivers when cfg.frontier_spill is on (overflow_count then
+    # stays 0 by construction, so saturation shows here instead)
+    spilled_tasks: int = 0
+    readmitted_tasks: int = 0
+    cold_bytes_peak: int = 0
     # reduction sweeps run over whole lane batches (set by the driver)
     reduce_sweeps: int = 0
 

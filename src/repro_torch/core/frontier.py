@@ -17,12 +17,17 @@ wins (``lax.top_k`` order; torch's ``topk`` promises none, so the port uses
 a stable sort or explicit first indices).  JAX drops out-of-range scatter
 writes (``mode="drop"``); torch raises on them, so those writes are masked
 explicitly here.
+
+The spill boundary (:func:`read_pool`, :func:`write_pool` and their lane
+forms) moves one instance's pool between the device and host numpy for the
+cold tier's pump (``repro_torch.core.spill``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 BIG_DEPTH = 1 << 30
@@ -154,3 +159,72 @@ def push_many(f: Frontier, masks, sols, depths, valid) -> Frontier:
         overflow=f.overflow | (n_dropped > 0),
         dropped=f.dropped + n_dropped,
     )
+
+
+# -- the spill boundary --------------------------------------------------------
+#
+# The hierarchical frontier memory (repro_torch.core.spill) moves task records
+# across the host/device boundary between chunks: the pump reads a pool,
+# mutates it with numpy and writes it back in place.  A read copies the four
+# pool leaves into pinned host buffers and waits once; a write issues the
+# four copies and waits once, so the host arrays may change after it
+# returns.  Packed words are int32 on the device and uint32 on the host, the
+# same bits (a view, never a conversion by value).  ``overflow``/``dropped``
+# are left untouched: with spill enabled they must stay zero (the no-drop
+# guarantee), and a nonzero value surviving the pump is a fault the tests
+# would catch.
+
+
+def _pool_leaves(f: Frontier, lane) -> tuple:
+    leaves = (f.masks, f.sols, f.depths, f.active)
+    return leaves if lane is None else tuple(x[lane] for x in leaves)
+
+
+def _wait(x: torch.Tensor) -> None:
+    if x.is_cuda:
+        torch.cuda.current_stream(x.device).synchronize()
+
+
+def read_pool(f: Frontier, lane: int | None = None) -> tuple:
+    """The (P, CAP, ...) task pool of a solo frontier, or of ``lane`` of a
+    (B, P, CAP, ...) stacked one, as host numpy arrays ``(masks, sols,
+    depths, active)``: masks and sols uint32, depths int32, active bool.
+    One device synchronisation."""
+    src = _pool_leaves(f, lane)
+    pin = src[0].is_cuda
+    host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=pin) for x in src]
+    for h, x in zip(host, src):
+        h.copy_(x, non_blocking=pin)
+    _wait(src[0])
+    m, s, d, a = (h.numpy() for h in host)
+    return m.view(np.uint32), s.view(np.uint32), d, a
+
+
+def write_pool(f: Frontier, masks, sols, depths, active,
+               lane: int | None = None) -> Frontier:
+    """Write host pool arrays back into a solo frontier (or into ``lane``
+    of a stacked one), in place; returns ``f``.  The solo spill pump's
+    write-back (``lane`` given: the lane pump's)."""
+    dst = _pool_leaves(f, lane)
+    src = (
+        np.asarray(masks, np.uint32).view(np.int32),
+        np.asarray(sols, np.uint32).view(np.int32),
+        np.asarray(depths, np.int32),
+        np.asarray(active, bool),
+    )
+    for x, arr in zip(dst, src):
+        x.copy_(torch.from_numpy(np.ascontiguousarray(arr)), non_blocking=x.is_cuda)
+    _wait(dst[0])
+    return f
+
+
+def read_lane_pool(f: Frontier, lane: int) -> tuple:
+    """One lane's (P, CAP, ...) pool of a (B, P, CAP, ...) stacked frontier
+    as host arrays — the live plane's spill-pump fetch."""
+    return read_pool(f, lane)
+
+
+def write_lane_pool(f: Frontier, lane: int, masks, sols, depths, active) -> Frontier:
+    """Write one lane's pool back into a (B, P, CAP, ...) stacked frontier,
+    in place; returns ``f``."""
+    return write_pool(f, masks, sols, depths, active, lane)

@@ -463,8 +463,9 @@ def build_plane_fn(problem: BranchingProblem, **knobs):
 # (:func:`slice_lanes`).  The live service (``repro_torch.api.service``)
 # never compacts: it keeps one plane of fixed lanes, admits an instance into
 # a vacant lane (:func:`lane_swap_in`) and frees it again
-# (:func:`lane_retire`).  Those verbs write the lane's slice in place, so a
-# lane index stays valid for the plane's whole life.
+# (:func:`lane_retire`); the spill pump un-freezes a lane its cold tier
+# refilled (:func:`lane_resume`).  Those verbs write the lane's slice in
+# place, so a lane index stays valid for the plane's whole life.
 
 
 class LaneState(NamedTuple):
@@ -527,6 +528,15 @@ def lane_swap_in(
     lanes.done[lane] = False
     lanes.rounds[lane] = 0
     lanes.tag[lane] = tag
+    return lanes
+
+
+def lane_resume(lanes: LaneState, lane: int) -> LaneState:
+    """Un-freeze a quiescent lane in place, without touching its occupant;
+    returns ``lanes``.  The spill pump re-admitted cold tasks into its
+    frontier, so the plane's "done" verdict no longer holds and the lane
+    must keep stepping."""
+    lanes.done[lane] = False
     return lanes
 
 

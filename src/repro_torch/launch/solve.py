@@ -4,7 +4,9 @@ The port of ``repro/launch/solve.py`` without its chaos flags: the same
 graph flags, the same config flags (a ``--config`` JSON is read by both
 packages alike), the same checkpoint flags (``--checkpoint-dir``,
 ``--checkpoint-every``, and ``--resume DIR``, which rebuilds the solve from
-a checkpoint of either package) and the same ``[solve] best=... rounds=...``
+a checkpoint of either package), the same spill flags (``--spill``,
+``--spill-codec``: a saturated frontier spills to the host cold tier
+instead of dropping tasks) and the same ``[solve] best=... rounds=...``
 lines.  Several DIMACS files (``--files``) and/or ``--batch B`` generated
 instances (consecutive seeds) go to ``solve_many``, one batched plane per
 W bucket.  It runs on the card unless ``--device cpu`` asks for the CPU.
@@ -18,6 +20,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --n 600 --p 0.00668 \\
       --workers 128 --checkpoint-dir ckpt --checkpoint-every 4
   PYTHONPATH=src python -m repro_torch.launch.solve --resume ckpt  # after a kill
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 \
+      --p 0.28 --workers 4 --steps-per-round 2 --chunk-rounds 2 \
+      --capacity 16 --spill
 """
 
 from __future__ import annotations
@@ -78,6 +83,8 @@ CONFIG_FLAGS = {
     "max_rounds": "max_rounds",
     "checkpoint_dir": "checkpoint_dir",
     "checkpoint_every": "checkpoint_every",
+    "spill": "frontier_spill",
+    "spill_codec": "spill_codec",
 }
 
 
@@ -159,7 +166,9 @@ def main(argv=None):
     ap.add_argument("--chunk-rounds", type=int, default=S)
     ap.add_argument("--mode", default=S, choices=["bnb", "fpt"])
     ap.add_argument("--k", type=int, default=S)
-    ap.add_argument("--capacity", type=int, default=S)
+    ap.add_argument("--capacity", type=int, default=S,
+                    help="hot frontier slots per worker "
+                         "(default: engine-sized 4n + 8*lanes)")
     ap.add_argument("--max-rounds", type=int, default=S,
                     help="superstep budget (checked per chunk): a bounded "
                          "anytime solve")
@@ -168,6 +177,14 @@ def main(argv=None):
                          "--checkpoint-every chunks (spmd)")
     ap.add_argument("--checkpoint-every", type=int, default=S,
                     help="chunks between checkpoint writes (default 8)")
+    ap.add_argument("--spill", action="store_true", default=S,
+                    help="hierarchical frontier memory: evict past the "
+                         "high-water mark to a codec-compressed host cold "
+                         "tier instead of dropping tasks (spmd)")
+    ap.add_argument("--spill-codec", default=S,
+                    choices=["optimized", "basic"],
+                    help="record encoding for the cold tier (default: "
+                         "optimized, 2W+1 words/task)")
     ap.add_argument("--resume", default=None, metavar="DIR",
                     help="resume a checkpointed solve (dir or step_N subdir); "
                          "problem/config/graphs come from the checkpoint, "
@@ -230,6 +247,10 @@ def main(argv=None):
                  f"{cfg.transfer_impl})")
         if s.checkpoints_written:
             line += f" checkpoints={s.checkpoints_written}"
+        if s.spilled_tasks:
+            line += (f" spilled={s.spilled_tasks} "
+                     f"readmitted={s.readmitted_tasks} "
+                     f"cold_peak={s.cold_bytes_peak}B")
     print(line)
 
 

@@ -13,8 +13,9 @@ the JAX package's ``PLANE_TRACES``).
 Across packages: a checkpoint of each kind written by the JAX package
 resumes (or restores) in the port to the JAX run's result, and a solo and a
 service checkpoint written by the port resume in the JAX package to the
-port run's.  What the port cannot run yet refuses: a checkpoint holding
-spill state names ROADMAP item 10.
+port run's.  A checkpoint whose cold tier (spill state) fails its CRC32
+check refuses to resume, as in the JAX package; spilled checkpoints that
+resume are ``tests/test_torch_spill_durability.py``.
 
 Outside the contract, as in the JAX tests: ``wall_s`` and the durability
 bookkeeping (``checkpoints_written``, ``resumed_from``).  ``reduce_sweeps``
@@ -293,29 +294,62 @@ def test_port_service_checkpoint_restores_in_jax(tmp_path):
         _assert_same(jsvc.result(t), base[t])
 
 
+def test_port_many_checkpoint_resumes_in_jax(tmp_path):
+    """A port ``"many"`` checkpoint whose meta holds finalized results (the
+    first bucket's, and the lanes collected at a compaction) resumes in the
+    JAX package, whose ``EngineResult(**d)`` takes no port-only field."""
+    d = str(tmp_path / "port")
+    port_run = SolverSession(config=SolveConfig(**CFG), **CPU).solve_many(
+        [erdos_renyi(n, 0.3, seed=s) for n, s in MANY_SIZES], checkpoint_dir=d)
+    last = _steps(d)[-1]
+    assert SolveCheckpoint.load(d, last).meta["results"]
+    rr = JaxSession.resume(os.path.join(d, f"step_{last}"), checkpoint_dir=None)
+    for a, b in zip(rr.results, port_run.results):
+        _assert_same(a, b)
+    assert rr.compactions == port_run.compactions
+
+
 def test_spill_state_in_a_checkpoint_refuses(tmp_path):
-    """A checkpoint with a frontier spiller's cold tier would resume with
-    tasks dropped: it is refused, naming ROADMAP item 10."""
+    """A checkpoint whose cold tier holds a record that fails its CRC32
+    check refuses to resume (``PayloadCorruptionError``), in the port as in
+    the JAX package: a rotten task is never searched on."""
+    from repro.core.encoding import PayloadCorruptionError as JaxCorruption
+    from repro_torch.core.encoding import PayloadCorruptionError
+
+    def rot(arrays, prefix):
+        name = next(k for k, v in sorted(arrays.items())
+                    if k.startswith(prefix) and ".w" in k and v.shape[0])
+        arrays[name] = arrays[name].copy()
+        arrays[name][0, 0] ^= np.uint32(1 << 31)
+
+    # 2 workers at capacity 16: the cold tier holds records at step 8
+    spill_cfg = dict(num_workers=2, steps_per_round=2, chunk_rounds=2, capacity=16,
+                     frontier_spill=True, checkpoint_every=1)
     d = str(tmp_path / "ck")
-    SolverSession(config=SolveConfig(**CFG), **CPU).solve(
-        erdos_renyi(34, 0.25, seed=3), checkpoint_dir=d)
-    ck = SolveCheckpoint.load(d, _steps(d)[0])
-    ck.arrays["spill.counters"] = np.zeros(3, np.int64)
+    SolverSession(config=SolveConfig(**spill_cfg, max_rounds=8), **CPU).solve(
+        erdos_renyi(40, 0.28, seed=0), checkpoint_dir=d)
+    ck = SolveCheckpoint.load(d)
+    rot(ck.arrays, "spill.")
     spilled = str(tmp_path / "spilled")
     ck.save(spilled, ck.rounds)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        SolverSession.resume(spilled, **CPU)
+    with pytest.raises(PayloadCorruptionError):
+        SolverSession.resume(spilled, checkpoint_dir=None, **CPU)
+    with pytest.raises(JaxCorruption):
+        JaxSession.resume(spilled, checkpoint_dir=None)
 
-    svc = SolveService("vertex_cover", SolveConfig(**SERVICE_CFG), **CPU)
-    svc.submit(erdos_renyi(34, 0.25, seed=3))
-    svc.step()
+    svc = SolveService("vertex_cover", SolveConfig(**spill_cfg, service_lanes=2), **CPU)
+    svc.submit(erdos_renyi(40, 0.28, seed=0))
+    for _ in range(4):
+        svc.step()
     sd = str(tmp_path / "svc")
     svc.checkpoint(sd)
     ck = SolveCheckpoint.load(sd)
-    ck.arrays["plane0/spill0.counters"] = np.zeros(3, np.int64)
+    rot(ck.arrays, "plane0/spill0.")
     ck.save(sd, ck.rounds + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        SolveService.restore(sd, **CPU)
+    with pytest.raises(PayloadCorruptionError):
+        SolveService.restore(sd, step=ck.rounds + 1, **CPU)
+    with pytest.raises(JaxCorruption):
+        JaxService.restore(sd, step=ck.rounds + 1)
 
 
 def test_launch_solve_checkpoints_and_resumes(tmp_path, capsys):

@@ -75,6 +75,9 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.checkpoint.store",
         "repro_torch.checkpoint.solve",
         "repro_torch.checkpoint._msgpack",
+        "repro_torch.core.encoding",
+        "repro_torch.core.spill",
+        "repro_torch.core.frontier",
     ):
         assert name in report["modules"]
 
@@ -91,7 +94,8 @@ def _imported_roots(path: pathlib.Path):
 
 def test_sources_import_neither_jax_nor_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert files
+    for name in ("core/encoding.py", "core/spill.py"):
+        assert PKG / name in files
     offenders = [
         (str(p.relative_to(ROOT)), root)
         for p in files
@@ -118,19 +122,15 @@ def test_unported_features_refuse():
 
     g = erdos_renyi(12, 0.3, 0)
     for kw in (
-        dict(frontier_spill=True),
         dict(use_mesh=True),
         dict(explore_impl="reference"),
     ):
         session = SolverSession(config=SolveConfig(num_workers=2, **kw), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             session.solve(g)
-    # the live service: spill and fault injection wait for items 10-11
+    # the live service: fault injection waits for item 11
     from repro_torch.api import SolveService
 
-    for kw, item in ((dict(frontier_spill=True), 10),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-            SolveService("max_clique", SolveConfig(num_workers=2, **kw), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
         SolveService("max_clique", SolveConfig(num_workers=2), injector=object(),
                      device="cpu")

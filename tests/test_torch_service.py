@@ -19,8 +19,8 @@ step-by-step parity run against the JAX package's service.
 * the JAX test ``test_wall_deadline_survives_checkpoint_restore``: a
   request's ``deadline_s`` rides through ``checkpoint()``/``restore()``
   (the rest of the service's durability is ``tests/test_torch_durability.py``);
-* the JAX service's spill and fault injection are refused with their
-  ROADMAP items.
+* the JAX service's fault injection is refused with its ROADMAP item
+  (spill is held against the JAX service in ``tests/test_torch_spill.py``).
 """
 
 import json
@@ -343,14 +343,12 @@ def test_wall_deadline_survives_checkpoint_restore(tmp_path):
 
 
 def test_unported_service_features_refuse(tmp_path):
-    """What the JAX service does beyond the live plane and its durability
-    refuses with its ROADMAP item."""
+    """What the JAX service does beyond the live plane, its durability and
+    its spill refuses with its ROADMAP item."""
     cfg = SolveConfig(num_workers=2, service_lanes=2)
     svc = SolveService("vertex_cover", cfg, **CPU)
     svc.submit(erdos_renyi(12, 0.3, 0), deadline_s=5.0)
     svc.step()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        SolveService("vertex_cover", cfg.replace(frontier_spill=True), **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
         SolveService("vertex_cover", cfg, injector=object(), **CPU)
 
