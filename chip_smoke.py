@@ -129,7 +129,32 @@ Phases (any failed check raises, so the exit code is not 0):
    spilled solves at n = 40-48) reproduced exactly and the JAX-written
    mid-spill checkpoint ``src/repro_torch/data/ckpt_jax_vc_spill``
    resumed to its record.  The kernels line gives the spilled paths'
-   launches as ``spill_launches``.
+   launches as ``spill_launches``;
+14. faults (run after phase 13; ``repro_torch.faults`` plans fire at the
+   host-sync boundaries, as in the JAX package) — (a) both legs of
+   ``benchmarks/chaos_smoke.py`` from the JAX-made
+   ``src/repro_torch/data/golden_chaos.json`` (a 3-lane spilled service
+   under crashes, a stall, payload corruption and a write error; a
+   checkpointed spilled solo solve under a crash and read and write errors):
+   every result, ledger and injector report equal to JAX's, the answers
+   equal to the fault-free run's, the totals equal to the exact pins of
+   ``benchmarks/baseline.json`` (10 injected, 10 recovered, 7 retries, 2
+   lanes quarantined; by kind 2/1/2/2/3), the wall ratio printed, not gated;
+   (b) phase 13's spilled paper-size solve with a checkpoint every 32
+   chunks under a crash at boundary 200, a read error on its recovery's
+   load, two transfer and two cold-tier corruptions and a write error:
+   equal to phase 13's record, ``reduce_sweeps`` included, with the
+   replayed supersteps, the recovery's load time and the wall against phase
+   13's printed; (c) phase 11a's lane-churn stream at 4 supersteps a chunk
+   under two crashes and a 4-boundary stall (``lane_stall_chunks`` 2), each
+   fired while 2 or more lanes are live and 8 or more chunks before the
+   end: every ticket equal to phase 11a's, 3 lanes quarantined, 3 faults
+   injected and recovered, none shed at drain, the tickets' ledgers summing
+   to the service's; (d) phase 4's max clique beside a copy of itself in
+   ``solve_many``, one lane crashed: both equal phase 4's golden.  Every
+   faulted path launches exactly one fused expansion per explore round its
+   plane runs, replays included; the kernels line gives them as
+   ``fault_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -923,8 +948,9 @@ def phase_service(dev, paper: dict, max_rounds: int) -> dict:
     """The live service on the card: (a) lane churn of eight n = 300 tickets
     through 4 lanes, (b) the paper's size in a 2-lane service with a
     superstep deadline, (c) the asyncio front end ``repro_torch.launch.serve``
-    with its defaults.  Returns each path's launch counts, and under
-    ``"capped"`` the record of seed 1's solo solve capped at 32 supersteps."""
+    with its defaults.  Returns each path's launch counts, under
+    ``"capped"`` the record of seed 1's solo solve capped at 32 supersteps,
+    and under ``"churn_records"`` the lane churn's records, seed by seed."""
     import numpy as np
 
     from repro_torch.api import SolveConfig, SolverSession
@@ -964,6 +990,7 @@ def phase_service(dev, paper: dict, max_rounds: int) -> dict:
     rounds = [r.rounds for r in results]
     ran = _per_explore_round(launches, "vc_expand", cfg.steps_per_round, svc, rounds)
     out["churn"] = launches
+    out["churn_records"] = [record(r) for r in results]
     print(_service_line("lane churn, G(300, 4/299, seeds 0-7), 64 workers, 4 lanes",
                         svc, walls))
     print(f"[smoke] service lane churn: seed 0 == golden_smoke, seeds 0-7 == their "
@@ -1031,8 +1058,10 @@ def phase_service(dev, paper: dict, max_rounds: int) -> dict:
 def _timed_calls(spans: dict, targets: dict):
     """Wrap ``getattr(owner, attr)`` for each ``name: (owner, attr)`` of
     ``targets`` so each call appends its wall (s) to ``spans[name]``; the
-    originals are put back on exit."""
+    originals (a class's own descriptors: a classmethod stays one) are put
+    back on exit."""
     saved = {name: getattr(owner, attr) for name, (owner, attr) in targets.items()}
+    raw = {name: vars(owner).get(attr, saved[name]) for name, (owner, attr) in targets.items()}
 
     def wrap(name, fn):
         def timed(*a, **kw):
@@ -1049,7 +1078,7 @@ def _timed_calls(spans: dict, targets: dict):
         yield spans
     finally:
         for name, (owner, attr) in targets.items():
-            setattr(owner, attr, saved[name])
+            setattr(owner, attr, raw[name])
 
 
 def _dir_bytes(path) -> int:
@@ -1289,14 +1318,16 @@ def _spill_extra(r) -> dict:
 
 
 def _hot_cache():
-    """A plane cache whose planes record, per chunk, the largest per-worker
-    pending count (``hot``) in ``peaks``."""
+    """A plane cache whose planes (solo and batched) record, per chunk, the
+    largest per-worker pending count (``hot``) in ``peaks``, and add the
+    chunk's superstep count to ``ran``."""
     from repro_torch.api import PlaneCache
 
     class HotCache(PlaneCache):
         def __init__(self):
             super().__init__()
             self.peaks = []
+            self.ran = 0
 
         def _get(self, *a):
             plane = super()._get(*a)
@@ -1304,6 +1335,7 @@ def _hot_cache():
             def recorded(*args, **kw):
                 out = plane(*args, **kw)
                 self.peaks.append(int(out[-1].max()))
+                self.ran += int(out[-2])
                 return out
 
             return recorded
@@ -1442,7 +1474,9 @@ def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
     in 2 lanes through ``solve_many`` and ``SolveService``, spilled; (d) (a)'s
     spilled solve resumed from a checkpoint whose cold tier holds records;
     (e) the JAX-made ``golden_spill.json`` and the JAX-written mid-spill
-    checkpoint.  Returns each kernel's launches on the spilled paths."""
+    checkpoint.  Returns each kernel's launches on the spilled paths and,
+    under ``"paper"``, (a)'s spilled solve: its config, record, reduce
+    sweeps and wall."""
     from repro_torch.api import SolveConfig, SolverSession, SolveService
     from repro_torch.checkpoint.solve import SolveCheckpoint
     from repro_torch.core.spill import chunk_headroom
@@ -1480,6 +1514,8 @@ def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
               f"{paper['best_size']}) or its cover does not verify")
         if i == 0:
             out["vc_expand"] += launches["vc_expand"]
+            out["paper"] = {"cfg": spilled_cfg, "record": rec, "wall": wall,
+                            "reduce_sweeps": r.stats.reduce_sweeps}
         runs.append(rec)
         print(f"[smoke] spill paper size run {i}: C={C}: best={rec['best_size']} rounds="
               f"{rec['rounds']} nodes={rec['nodes_expanded']} spilled={rec['spilled_tasks']} "
@@ -1600,6 +1636,357 @@ def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
           f"checkpoint (step {doc['step']}, {doc['cold_records']} cold records) resumes to "
           f"its record")
     return out
+
+
+# -- faults on the card (phase 14) ------------------------------------------------
+#
+# The fault plans fire at host-sync boundaries only, as in the JAX package, so
+# every faulted path launches the fused kernels of the plain one: exactly one
+# expansion an explore round the plane actually runs, a replayed prefix
+# included.  The plane supersteps run are counted by ``_hot_cache``.
+
+# (b): the paper size, phase 13's spilled shape, a checkpoint every 32 chunks
+# (a chunk a superstep); the crash comes after six checkpoints, the read error
+# hits its recovery's load, the write error the checkpoint of chunk 128
+FAULT_PAPER_EVERY = 32
+FAULT_PAPER_EVENTS = (
+    ("transfer_corrupt", 20, {}), ("cold_corrupt", 40, {}), ("transfer_corrupt", 60, {}),
+    ("cold_corrupt", 80, {}), ("io_error", 100, {"op": "write"}),
+    ("io_error", 150, {"op": "read"}), ("crash", 200, {}),
+)
+# (c): phase 11a's stream at 4 supersteps a chunk (at its 16 the stream is 14
+# chunks, no room for a stall window and 8 fault-free chunks after it).  The
+# events come early, while tickets wait for lanes: two faults shed a lane, and
+# with three quarantined lanes the plane admits no more until it heals, so a
+# later event would find one live lane or none (phase 11a's tickets run 7-188
+# supersteps: the third event finds 2 live lanes)
+FAULT_SERVICE_CHUNK = 4
+FAULT_SERVICE_EVENTS = (
+    ("stall", 3, {"lane": 2, "duration": 4}), ("crash", 5, {"lane": 0}),
+    ("crash", 6, {"lane": 1}),
+)
+FAULT_SERVICE_STALL_CHUNKS = 2
+# (d): the max-clique crash, on lane 1 at the second boundary (a chunk of 16)
+FAULT_CLIQUE_EVENTS = (("crash", 2, {"lane": 1}),)
+
+
+def _plan(events, seed: int = 0):
+    from repro_torch.faults import FaultEvent, FaultPlan
+
+    return FaultPlan(seed=seed, events=tuple(FaultEvent(k, at=at, **kw) for k, at, kw in events))
+
+
+def _watched_injector(plan):
+    """A FaultInjector that records, for each crash or stall it fires, the
+    boundary and the number of live lanes it chose from (one for a solo
+    plane)."""
+    from repro_torch.faults import FaultInjector
+
+    class Watched(FaultInjector):
+        def __init__(self, plan):
+            super().__init__(plan)
+            self.fired = []
+
+        def take_crash(self):
+            hit = super().take_crash()
+            self.fired += [("crash", self.t, 1)] * hit
+            return hit
+
+        def take_crashes(self, live_lanes):
+            out = super().take_crashes(live_lanes)
+            self.fired += [("crash", self.t, len(live_lanes))] * len(out)
+            return out
+
+        def stalled_lanes(self, live_lanes):
+            before = self.injected["stall"]
+            out = super().stalled_lanes(live_lanes)
+            self.fired += [("stall", self.t, len(live_lanes))] * (self.injected["stall"] - before)
+            return out
+
+    return Watched(plan)
+
+
+def _per_round(label: str, launches: dict, kernel: str, steps_per_round: int, ran: int) -> None:
+    check(launches == {kernel: steps_per_round * ran},
+          f"{label}: launched {launches} in {ran} plane supersteps: want "
+          f"{steps_per_round * ran} {kernel}, one per explore round, and nothing else")
+
+
+def _chaos_leg(name: str, leg: dict, dev, faults: bool) -> tuple:
+    """One leg of golden_chaos.json on the card, with its plan or fault-free;
+    returns (its golden_chaos-shaped output, wall, launches, plane supersteps)."""
+    import warnings
+
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.faults import FaultInjector, FaultPlan
+    from repro_torch.kernels import counts
+
+    inj = FaultInjector(FaultPlan.from_dict(leg["plan"])) if faults else None
+    cache = _hot_cache()
+    session = SolverSession("vertex_cover", config=SolveConfig(**leg["solve_kw"]),
+                            cache=cache, device=dev)
+    graphs = [_build_graph(g) for g in leg["graphs"]]
+
+    def rec(r):
+        out = spill_record(r)
+        if r.stats.service is not None:
+            out["ledger"] = {k: int(getattr(r.stats.service, k)) for k in (
+                "faults_injected", "faults_recovered", "lanes_quarantined", "retries")}
+        return out
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="smoke_chaos_")
+    counts.reset()
+    t = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # the store's retry warnings
+            if name == "service":
+                svc = session.serve(injector=inj, checkpoint_dir=root, **leg["serve_kw"])
+                tickets = [svc.submit(g) for g in graphs]
+                svc.drain()
+                out["results"] = [rec(svc.result(tk)) for tk in tickets]
+                st = svc.stats()
+                out["stats"] = {k: int(st[k]) for k in (
+                    "lanes_quarantined", "lanes_shed", "faults_injected",
+                    "faults_recovered", "retries")}
+            else:
+                extra = {"injector": inj} if inj is not None else {}
+                out["results"] = [rec(session.solve(graphs[0], checkpoint_dir=root, **extra))]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    if inj is not None:
+        out["report"] = inj.report()
+    return out, wall, launches, cache.ran
+
+
+DATA = ROOT / "src" / "repro_torch" / "data"
+
+
+def phase_faults(dev, churn_records: list, spilled: dict) -> dict:
+    """Fault injection and self-healing on the card: (a) both chaos legs of
+    ``golden_chaos.json`` against the JAX record and the chaos pins of
+    ``benchmarks/baseline.json``; (b) phase 13's spilled paper-size solve
+    under a crash, payload corruption and checkpoint I/O errors, equal to
+    phase 13's record; (c) phase 11a's lane-churn stream under two crashes
+    and a stall, equal to phase 11a ticket for ticket; (d) phase 4's max
+    clique in ``solve_many`` beside a copy of itself, one lane crashed,
+    equal to phase 4's golden.  Returns each kernel's launches on the
+    faulted paths."""
+    return {
+        "vc_expand": (_faults_chaos(dev) + _faults_paper(dev, spilled)
+                      + _faults_service(dev, churn_records)),
+        "clique_expand": _faults_clique(dev),
+    }
+
+
+def _faults_chaos(dev) -> int:
+    """(a) The chaos gate: golden_chaos.json (the JAX package's run of both
+    legs) reproduced field for field, and the baseline's exact pins.
+    Returns the vc_expand launches."""
+    from repro_torch.faults import FAULT_KINDS
+
+    launched = 0
+    golden = json.loads((DATA / "golden_chaos.json").read_text())
+    totals = {"injected": dict.fromkeys(FAULT_KINDS, 0), "recovered": dict.fromkeys(FAULT_KINDS, 0),
+              "retries": 0}
+    walls = {}
+    for name, case in golden.items():
+        leg = {k: case[k] for k in ("graphs", "solve_kw", "serve_kw", "plan") if k in case}
+        # warm both trajectories first (as chaos_smoke does), so the walls
+        # compare recovery, not first-use costs; the runs are chunk-clocked,
+        # so the timed ones repeat the warm ones exactly
+        for faults in (False, True):
+            _chaos_leg(name, leg, dev, faults)
+        clean, clean_wall, clean_launches, clean_ran = _chaos_leg(name, leg, dev, faults=False)
+        got, wall, launches, ran = _chaos_leg(name, leg, dev, faults=True)
+        want = {k: case[k] for k in ("results", "report", "stats") if k in case}
+        check(got == want, f"chaos {name} leg on the card: {got} != the JAX record {want}")
+        strip = [{k: v for k, v in r.items() if k != "ledger"} for r in got["results"]]
+        check(strip == [{k: v for k, v in r.items() if k != "ledger"} for r in clean["results"]],
+              f"chaos {name} leg: the faulted answers differ from the fault-free ones")
+        check(got["report"]["pending"] == 0, f"chaos {name} leg: events left pending")
+        spr = leg["solve_kw"]["steps_per_round"]
+        _per_round(f"chaos {name} leg", launches, "vc_expand", spr, ran)
+        _per_round(f"chaos {name} leg fault-free", clean_launches, "vc_expand", spr, clean_ran)
+        launched += launches["vc_expand"]
+        for key in ("injected", "recovered"):
+            for kind in FAULT_KINDS:
+                totals[key][kind] += got["report"][key][kind]
+        totals["retries"] += got["report"]["retries"]
+        walls[name] = (wall, clean_wall)
+        print(f"[smoke] faults chaos {name} leg == golden_chaos.json (JAX), answers == the "
+              f"fault-free run; report {got['report']}; wall {wall:.3f} s against the "
+              f"fault-free {clean_wall:.3f} s = {wall / clean_wall:.3f}x (not gated); "
+              f"{ran} plane supersteps against {clean_ran}; launches={launches}")
+    reading = {
+        "faults_injected": sum(totals["injected"].values()),
+        "faults_recovered": sum(totals["recovered"].values()),
+        "retries": totals["retries"],
+        "lanes_quarantined": golden["service"]["stats"]["lanes_quarantined"],
+        "injected_by_kind": totals["injected"],
+        "all_kinds_covered": all(v >= 1 for v in totals["injected"].values()),
+        "bit_identical": True,  # checked above
+        "no_drop": all(r["overflow_count"] == 0 for c in golden.values() for r in c["results"]),
+    }
+    pins = json.loads((ROOT / "benchmarks" / "baseline.json").read_text())
+    for c in pins["benchmarks"]["chaos_smoke"]["checks"]:
+        if c["path"] == "wall_ratio":
+            continue  # recorded above, not gated
+        value = reading
+        for part in c["path"].split("."):
+            value = value[part]
+        check(value == c["eq"], f"chaos pin {c['path']}: {value} != {c['eq']}")
+    ratio = sum(w for w, _ in walls.values()) / sum(c for _, c in walls.values())
+    print(f"[smoke] faults chaos gate on the card: {reading['faults_injected']} injected, "
+          f"{reading['faults_recovered']} recovered, {reading['retries']} retries, "
+          f"{reading['lanes_quarantined']} lanes quarantined, by kind "
+          f"{totals['injected']} == the baseline pins; both injectors end with nothing "
+          f"pending; wall ratio {ratio:.3f}x (JAX's gate 1.5x, not gated here)")
+    return launched
+
+
+def _faults_paper(dev, spilled: dict) -> int:
+    """(b) The paper's size, solo, phase 13's spilled shape under every solo
+    fault kind; returns the vc_expand launches."""
+    import warnings
+
+    from repro_torch.api import SolverSession
+    from repro_torch.checkpoint.solve import SolveCheckpoint
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import counts
+
+    g = erdos_renyi(**PAPER_GRAPH)
+    cfg = spilled["cfg"].replace(checkpoint_every=FAULT_PAPER_EVERY)
+    inj = _watched_injector(_plan(FAULT_PAPER_EVENTS, seed=3))
+    cache = _hot_cache()
+    session = SolverSession(config=cfg, cache=cache, device=dev)
+    root = tempfile.mkdtemp(prefix="smoke_faults_")
+    spans = {}
+    try:
+        counts.reset()
+        with warnings.catch_warnings(), _timed_calls(
+                spans, {"load": (SolveCheckpoint, "load_latest_good"),
+                        "save": (SolveCheckpoint, "save")}):
+            warnings.simplefilter("ignore", RuntimeWarning)
+            t = time.perf_counter()
+            r = session.solve(g, checkpoint_dir=os.path.join(root, "paper"), injector=inj)
+            wall = time.perf_counter() - t
+        launches = counts.snapshot()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep = inj.report()
+    rec = spill_record(r)
+    check(rec == spilled["record"],
+          f"faulted paper-size spilled solve: {rec} != phase 13's {spilled['record']}")
+    check(r.stats.reduce_sweeps == spilled["reduce_sweeps"],
+          f"faulted paper-size solve: reduce_sweeps {r.stats.reduce_sweeps} != phase 13's "
+          f"{spilled['reduce_sweeps']}")
+    check(rep["pending"] == 0 and rep["injected"] == rep["recovered"]
+          and inj.faults_injected == len(FAULT_PAPER_EVENTS),
+          f"faulted paper-size solve: not every event fired and recovered: {rep}")
+    replayed = cache.ran - rec["rounds"]
+    check(replayed > 0, f"faulted paper-size solve: the crash replayed {replayed} supersteps")
+    _per_round("faulted paper-size solve", launches, "vc_expand", cfg.steps_per_round, cache.ran)
+    loads = spans.get("load", [])
+    check(len(loads) == 1, f"faulted paper-size solve: {len(loads)} checkpoint loads")
+    print(f"[smoke] faults paper size G(600, 4/599, seed 0), spilled at C="
+          f"{cfg.capacity}, a checkpoint every {FAULT_PAPER_EVERY} chunks: == phase 13's "
+          f"spilled record (best {rec['best_size']}, {rec['rounds']} supersteps, "
+          f"{rec['spilled_tasks']} spilled and readmitted, reduce_sweeps "
+          f"{r.stats.reduce_sweeps}); crash at boundary {inj.fired[0][1]}, "
+          f"{replayed} supersteps replayed ({cache.ran} run); the recovery's load "
+          f"{1e3 * loads[0]:.3f} ms (its read error retried on the virtual clock, "
+          f"{rep['backoff_s']} s), {len(spans.get('save', []))} checkpoint writes "
+          f"{1e3 * sum(spans.get('save', [])):.3f} ms; report {rep}; wall {wall:.3f} s = "
+          f"{wall / spilled['wall']:.3f}x phase 13's spilled {spilled['wall']:.3f} s; "
+          f"launches={launches}")
+    return launches["vc_expand"]
+
+
+def _faults_service(dev, churn_records: list) -> int:
+    """(c) The live service: phase 11a's stream under two crashes and a
+    stall; returns the vc_expand launches."""
+    from repro_torch.api import SolveConfig, SolveService
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import counts
+
+    smoke = json.loads((DATA / "golden_smoke.json").read_text())
+    cfg = SolveConfig(**smoke["solve_kw"], service_lanes=4, chunk_rounds=FAULT_SERVICE_CHUNK,
+                      lane_stall_chunks=FAULT_SERVICE_STALL_CHUNKS)
+    graphs = [erdos_renyi(seed=s, **BATCH_GRAPH) for s in range(8)]
+    inj = _watched_injector(_plan(FAULT_SERVICE_EVENTS))
+    cache = _hot_cache()
+    svc = SolveService("vertex_cover", cfg, cache=cache, injector=inj, device=dev)
+    tickets = [svc.submit(x, priority=(3 * s) % 8) for s, x in enumerate(graphs)]
+    counts.reset()
+    t = time.perf_counter()
+    steps = 0
+    while not svc.idle():
+        svc.step()
+        steps += 1
+    wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    results = [svc.result(tk) for tk in tickets]
+    got = [record(x) for x in results]
+    check(got == churn_records, f"faulted service: {got} != phase 11a's {churn_records}")
+    st = svc.stats()
+    check(st["lanes_quarantined"] == 3 and st["faults_injected"] == st["faults_recovered"] == 3
+          and st["lanes_shed"] == 0 and inj.report()["pending"] == 0,
+          f"faulted service: stats {st}, report {inj.report()}")
+    check(all(live >= 2 for _, _, live in inj.fired) and len(inj.fired) == 3,
+          f"faulted service: events fired at {inj.fired} (kind, boundary, live lanes)")
+    last = max(b for _, b, _ in inj.fired)
+    check(inj.t - last >= 8, f"faulted service: the last event fired at boundary {last} "
+                             f"of {inj.t}: fewer than 8 chunks left to heal")
+    for key in ("faults_injected", "faults_recovered", "lanes_quarantined"):
+        total = sum(getattr(x.stats.service, key) for x in results)
+        check(total == st[key], f"faulted service: tickets' {key} sum to {total}, "
+                                f"the service's is {st[key]}")
+    check(st["supersteps"] == cache.ran, f"faulted service: {st['supersteps']} != {cache.ran}")
+    _per_round("faulted service", launches, "vc_expand", cfg.steps_per_round, cache.ran)
+    print(f"[smoke] faults service, 8 x G(300, 4/299, seeds 0-7), 64 workers, 4 lanes, "
+          f"{FAULT_SERVICE_CHUNK} supersteps a chunk, lane_stall_chunks "
+          f"{FAULT_SERVICE_STALL_CHUNKS}: every ticket == phase 11a; events (kind, boundary, "
+          f"live lanes) {inj.fired} of {inj.t} boundaries; lanes_quarantined "
+          f"{st['lanes_quarantined']}, injected = recovered = {st['faults_recovered']}, shed 0 "
+          f"at drain; {steps} steps, {st['supersteps']} plane supersteps, wall {wall:.3f} s; "
+          f"launches={launches}")
+    return launches["vc_expand"]
+
+
+def _faults_clique(dev) -> int:
+    """(d) Max clique: phase 4's exact solve beside a copy of itself in
+    ``solve_many``, one lane crashed; returns the clique_expand launches."""
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.kernels import counts
+
+    golden = json.loads((DATA / "golden_clique.json").read_text())["max_clique"]
+    gc = _build_graph(golden["graph"])
+    cfg = SolveConfig(**golden["solve_kw"])
+    inj = _watched_injector(_plan(FAULT_CLIQUE_EVENTS))
+    cache = _hot_cache()
+    counts.reset()
+    t = time.perf_counter()
+    batch = SolverSession(problem="max_clique", config=cfg, cache=cache, device=dev).solve_many(
+        [gc, gc], injector=inj)
+    wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    for i, x in enumerate(batch.results):
+        got = {**record(x), "overflow_count": int(x.stats.overflow_count)}
+        check(got == golden["result"], f"faulted max-clique lane {i}: {got} != phase 4's golden")
+    check(inj.injected["crash"] == inj.recovered["crash"] == 1,
+          f"faulted max clique: {inj.report()}")
+    _per_round("faulted max clique", launches, "clique_expand", cfg.steps_per_round, cache.ran)
+    print(f"[smoke] faults max clique {golden['graph']} in solve_many with a copy, lane "
+          f"crashed at {inj.fired}: both == phase 4's golden (best "
+          f"{batch.results[0].best_size}, {batch.results[0].rounds} supersteps); "
+          f"{cache.ran} plane supersteps, {batch.compactions} compaction(s), wall "
+          f"{wall:.3f} s; launches={launches}")
+    return launches["clique_expand"]
+
 
 
 # -- the LM serving path (phases 8-10) ------------------------------------------
@@ -2214,6 +2601,16 @@ def main() -> None:
     kernels["clique_expand"]["spill_path"] = "max clique exact solve, spilled, phase 13"
     for name in ("vc_expand", "clique_expand"):
         check(kernels[name]["spill_launches"] > 0, f"no spilled path launched {name}")
+    # and the faulted solves their fifth
+    faulted = timed("faults", phase_faults, dev, service["churn_records"], spilled["paper"])
+    kernels["vc_expand"]["fault_launches"] = faulted["vc_expand"]
+    kernels["vc_expand"]["fault_path"] = (
+        "faults: both chaos legs, the spilled paper size under a crash, corruption and "
+        "I/O errors, the lane-churn service under two crashes and a stall, phase 14")
+    kernels["clique_expand"]["fault_launches"] = faulted["clique_expand"]
+    kernels["clique_expand"]["fault_path"] = "max clique in solve_many, one lane crashed, phase 14"
+    for name in ("vc_expand", "clique_expand"):
+        check(kernels[name]["fault_launches"] > 0, f"no faulted path launched {name}")
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

@@ -14,11 +14,16 @@ stopped.  With ``frontier_spill`` each instance gets a
 :class:`~repro_torch.core.spill.FrontierSpiller`: after a chunk its host
 pump evicts above the high-water mark into the cold tier and refills below
 the low one, so a saturated frontier drops nothing, and the cold tier rides
-in the checkpoints.
+in the checkpoints.  With an ``injector`` (a
+:class:`~repro_torch.faults.FaultInjector`) both drivers heal the faults it
+fires at their host-sync boundaries: a crashed solo plane is rebuilt from
+the last good checkpoint (or replayed from the startup placement), a
+crashed lane of the batch is re-admitted from its startup placement, and
+checkpoint I/O errors are retried under the injector's virtual backoff.
 
-Features of the JAX drivers that the port does not carry yet are refused
-with ``NotImplementedError`` naming their ROADMAP item; none is silently
-ignored.
+Features of the JAX drivers that the port does not carry yet (the mesh) are
+refused with ``NotImplementedError`` naming their ROADMAP item; none is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch.api.result import (
     from_sequential,
 )
 from repro_torch.checkpoint import solve as _ckpt
+from repro_torch.checkpoint import store as _store
 from repro_torch.core import engine as _engine
 from repro_torch.core.encoding import make_codec
 from repro_torch.core.spill import FrontierSpiller, make_spiller, pump_lanes
@@ -45,6 +51,7 @@ from repro_torch.core.superstep import (
     LaneState,
     lane_state_from_flat,
     lane_state_to_flat,
+    lane_swap_in,
     map_state,
     slice_lanes,
     state_to,
@@ -60,7 +67,6 @@ from repro_torch.problems.base import WorkCounters
 _NOT_PORTED = {
     "use_mesh": "queue 1, item 13 (multi-device path)",
     "mesh": "queue 1, item 13 (multi-device path)",
-    "injector": "queue 1, item 11 (fault wiring)",
 }
 
 
@@ -70,19 +76,24 @@ def _refuse(what: str) -> None:
     )
 
 
-def _refuse_unported(cfg: SolveConfig, injector) -> None:
-    if injector is not None:
-        _refuse("injector")
+def _io_policy(injector) -> tuple:
+    """``(retry, fault_hook)`` for the checkpoint store: the injector's
+    virtual-backoff retry policy and its I/O fault hook, or ``(None,
+    None)`` without one."""
+    if injector is None:
+        return None, None
+    return injector.retry_policy(), injector.io_hook
 
 
 def _load_resume(cfg: SolveConfig, kind: str, fingerprint: str, verb: str,
-                 problem: str):
+                 problem: str, retry=None, fault_hook=None):
     """The newest intact ``kind`` checkpoint under ``cfg.resume_from`` whose
     fingerprint is ``fingerprint`` (falling back past corrupt generations
-    with a warning), for the solve loop ``verb``."""
+    with a warning), for the solve loop ``verb``; I/O under ``retry`` and
+    ``fault_hook``."""
     ck = _ckpt.SolveCheckpoint.load_latest_good(
         cfg.resume_from, expected_fingerprint=fingerprint,
-        what=f"{verb}({problem})",
+        what=f"{verb}({problem})", retry=retry, fault_hook=fault_hook,
     )
     if ck.kind != kind:
         raise _ckpt.CheckpointError(
@@ -93,10 +104,11 @@ def _load_resume(cfg: SolveConfig, kind: str, fingerprint: str, verb: str,
 
 
 def _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
-                           reduce_sweeps, spill=None) -> None:
+                           reduce_sweeps, spill=None, retry=None,
+                           fault_hook=None) -> None:
     """One atomic SolveCheckpoint of a solo solve at a chunk boundary, the
     cold tier of ``spill`` included; the port's running ``reduce_sweeps``
-    rides in its meta."""
+    rides in its meta.  The write runs under ``retry`` and ``fault_hook``."""
     ck = _ckpt.SolveCheckpoint(
         kind="solo",
         problem=spec.name,
@@ -109,7 +121,7 @@ def _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
     if spill is not None:
         ck.arrays.update(spill.to_flat())
     ck.pack_graphs([0], [g])
-    ck.save(cfg.checkpoint_dir, rounds)
+    ck.save(cfg.checkpoint_dir, rounds, retry=retry, fault_hook=fault_hook)
 
 
 def solve_spmd(
@@ -149,8 +161,21 @@ def solve_spmd(
     chunk whose (P,) hot counts call for it, the pump runs, unless the FPT
     bound was hit (that finishes the solve whatever the backlog), and the
     solve is done only when the plane was done and the pump left nothing
-    pending."""
-    _refuse_unported(cfg, injector)
+    pending.
+
+    Faults: ``injector`` (a :class:`~repro_torch.faults.FaultInjector`)
+    ticks once a chunk, after the pump and before the checkpoint write.  A
+    crash there discards the state: it is rebuilt from the newest good
+    checkpoint under ``cfg.checkpoint_dir`` when the solve is durable and has
+    written one, else from ``initial_state`` or the startup scatter with
+    ``rounds`` 0.  The checkpoint and the startup scatter come with a fresh
+    spiller (loaded from the checkpoint's cold tier); a replay from
+    ``initial_state`` keeps the spiller, as the JAX package does.  The
+    rebuilt solve replays a prefix of the same deterministic trajectory, so
+    the result is the undisturbed one's, and ``reduce_sweeps`` rewinds with
+    the state (to the checkpoint's running sum, or 0).  Checkpoint reads and
+    writes run under the injector's retry policy and I/O hook; the spiller
+    heals the corruption it injects."""
     if cfg.use_mesh:
         _refuse("use_mesh")
     if mesh is not None:
@@ -163,6 +188,7 @@ def solve_spmd(
     counters = WorkCounters()
     use_fpt = cfg.mode == "fpt"
     fpt_bound = int(spec.fpt_target(k)) if use_fpt else None
+    io_retry, io_hook = _io_policy(injector)
     fingerprint = None
     if cfg.checkpoint_dir is not None or cfg.resume_from is not None:
         fingerprint = _ckpt.config_fingerprint(
@@ -172,27 +198,44 @@ def solve_spmd(
     data = problems_base.make_data(spec, g, device)
     rounds = 0
     ck = None
+    cap = cfg.capacity or (4 * g.n + 8 * cfg.lanes)
+
+    def build_startup():
+        return _engine.make_instance_state(
+            spec, g, cfg.num_workers, cap, W, initial_best, device
+        )
+
+    def restore(ck):
+        """A solo checkpoint's state and rounds; its running
+        ``reduce_sweeps`` (a port checkpoint's meta; 0 in a JAX one) goes
+        back into the counters."""
+        counters.reduce_sweeps = int(ck.meta.get("reduce_sweeps", 0))
+        return worker_state_from_flat(ck.arrays, device), ck.rounds
+
     if cfg.resume_from is not None:
         if initial_state is not None:
             raise ValueError("pass resume_from or initial_state, not both")
-        ck = _load_resume(cfg, "solo", fingerprint, "solve", spec.name)
-        state = worker_state_from_flat(ck.arrays, device)
-        rounds = ck.rounds
-        counters.reduce_sweeps = int(ck.meta.get("reduce_sweeps", 0))
+        ck = _load_resume(cfg, "solo", fingerprint, "solve", spec.name,
+                          io_retry, io_hook)
+        state, rounds = restore(ck)
         cap = int(state.frontier.masks.shape[-2])
     elif initial_state is None:
-        cap = cfg.capacity or (4 * g.n + 8 * cfg.lanes)
-        state = _engine.make_instance_state(
-            spec, g, cfg.num_workers, cap, W, initial_best, device
-        )
+        state = build_startup()
     else:
         state = state_to(initial_state, device)
         cap = int(state.frontier.masks.shape[-2])
-    spill = None
-    if cfg.frontier_spill:
-        spill = make_spiller(cfg, spec, g, cap, cfg.num_workers)
-        if ck is not None and FrontierSpiller.present_in(ck.arrays):
-            spill.load_flat(ck.arrays)
+
+    def new_spiller(arrays=None):
+        """A spiller of the state's capacity (None without spill), loaded
+        from a checkpoint's cold tier when ``arrays`` holds one."""
+        if not cfg.frontier_spill:
+            return None
+        sp = make_spiller(cfg, spec, g, cap, cfg.num_workers, injector)
+        if arrays is not None and FrontierSpiller.present_in(arrays):
+            sp.load_flat(arrays)
+        return sp
+
+    spill = new_spiller(None if ck is None else ck.arrays)
     plane = cache.solo_plane(spec, cfg, pad, use_fpt)
     cache.note("solo", spec, cfg, pad, use_fpt, (g.n, W, cap, cfg.num_workers))
 
@@ -210,11 +253,41 @@ def solve_spmd(
             if not fpt_hit:
                 _, hot_h = spill.pump_frontier(state.frontier)
                 done = done and int(hot_h.sum()) == 0
+        if injector is not None:
+            injector.step_boundary()
+            if injector.take_crash():
+                # the plane's state died at this boundary: rebuild it from the
+                # last good checkpoint when the solve is durable, else replay
+                # from the startup placement; both re-run a prefix of the
+                # same trajectory, so the answer is unchanged
+                if (cfg.checkpoint_dir is not None
+                        and _store.latest_step(cfg.checkpoint_dir) is not None):
+                    rck = _ckpt.SolveCheckpoint.load_latest_good(
+                        cfg.checkpoint_dir, expected_fingerprint=fingerprint,
+                        what=f"solve({spec.name}) crash recovery",
+                        retry=io_retry, fault_hook=io_hook,
+                    )
+                    state, rounds = restore(rck)
+                    spill = new_spiller(rck.arrays)
+                elif initial_state is not None:
+                    # as the JAX package does, the replay from a caller's
+                    # state keeps the spiller (ROADMAP section 3)
+                    state = map_state(lambda x: x.to(device, copy=True), initial_state)
+                    rounds = 0
+                    counters.reduce_sweeps = 0
+                else:
+                    state = build_startup()
+                    rounds = 0
+                    counters.reduce_sweeps = 0
+                    spill = new_spiller()
+                injector.note_recovered("crash")
+                done = False
         if done:
             break
         if cfg.checkpoint_dir is not None and chunks % cfg.checkpoint_every == 0:
             _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
-                                   counters.reduce_sweeps, spill)
+                                   counters.reduce_sweeps, spill,
+                                   io_retry, io_hook)
             checkpoints_written += 1
     host = _engine._fetch_batch_state(map_state(lambda x: x[None], state))
     wall = time.perf_counter() - t0
@@ -278,8 +351,16 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
     :func:`~repro_torch.core.spill.pump_lanes` (the service's pump too),
     which resumes a done lane it refilled.  Compaction slices the spillers
     with their lanes, and each collected result carries its lane's spill
-    counters."""
-    _refuse_unported(cfg, injector)
+    counters.
+
+    Faults: ``injector`` ticks once a chunk, after the pump and before
+    compaction and the checkpoint write.  Its crashes map onto the live
+    lanes (modulo their count); a crashed lane is re-admitted from its
+    instance's startup placement (the center still knows which instance
+    the lane held: its tag) with a fresh spiller, a replay whose result is
+    the undisturbed one's.  ``lane_stats["reduce_sweeps"]`` counts the work
+    done, replays included.  Checkpoint reads and writes run under the
+    injector's retry policy and I/O hook."""
     if cfg.use_mesh:
         raise ValueError(
             "solve_many has no mesh path yet (vmap virtual workers only); "
@@ -302,6 +383,7 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
     counters = WorkCounters()
     chunks_total = 0
     checkpoints_written = 0
+    io_retry, io_hook = _io_policy(injector)
 
     fingerprint = None
     if cfg.checkpoint_dir is not None or cfg.resume_from is not None:
@@ -311,7 +393,8 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
     resume_ck = None
     resume_bucket = -1
     if cfg.resume_from is not None:
-        resume_ck = _load_resume(cfg, "many", fingerprint, "solve_many", spec.name)
+        resume_ck = _load_resume(cfg, "many", fingerprint, "solve_many", spec.name,
+                                 io_retry, io_hook)
         meta = resume_ck.meta
         results = {
             int(i): _ckpt.engine_result_from_dict(d)
@@ -350,7 +433,7 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
         spillers = []
         for lane in range(lanes.num_lanes):
             sp = make_spiller(cfg, spec, graphs[int(lanes.tag[lane])], cap,
-                              cfg.num_workers)
+                              cfg.num_workers, injector)
             if arrays is not None and FrontierSpiller.present_in(arrays, f"spill{lane}"):
                 sp.load_flat(arrays, f"spill{lane}")
             spillers.append(sp)
@@ -386,7 +469,7 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
             if sp is not None:
                 ck.arrays.update(sp.to_flat(f"spill{lane}"))
         ck.pack_graphs(range(B), graphs)
-        ck.save(cfg.checkpoint_dir, chunks_total)
+        ck.save(cfg.checkpoint_dir, chunks_total, retry=io_retry, fault_hook=io_hook)
 
     buckets = _engine._bucket_instances(graphs, by_n=(cfg.codec == "basic"))
     ordered = sorted(buckets.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0))
@@ -450,6 +533,26 @@ def solve_many_spmd(spec, graphs, cfg: SolveConfig, cache: PlaneCache, *,
             done_h = lanes.done.cpu().numpy()
             if cfg.frontier_spill:
                 pump_lanes(lanes, spillers, done_h, hot, fpt_bounds)
+            if injector is not None:
+                injector.step_boundary()
+                live = [lane for lane in range(lanes.num_lanes) if not done_h[lane]]
+                for lane in injector.take_crashes(live):
+                    # the lane's occupant died with its state; the center
+                    # still knows which instance it held (its tag), so it is
+                    # re-admitted from its startup placement, before
+                    # compaction can collect the dead state as a result
+                    oi = int(lanes.tag[lane])
+                    worker = _engine.make_instance_state(
+                        spec, graphs[oi], cfg.num_workers, cap, W,
+                        problems_base.initial_bound(spec, graphs[oi], cfg.mode, ks[oi]),
+                        device,
+                    )
+                    lane_swap_in(lanes, lane, worker, oi)
+                    done_h[lane] = False
+                    if cfg.frontier_spill:
+                        spillers[lane] = make_spiller(cfg, spec, graphs[oi], cap,
+                                                      cfg.num_workers, injector)
+                    injector.note_recovered("crash")
             live_h = ~done_h
             if done_h.all():
                 break

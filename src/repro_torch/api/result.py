@@ -21,10 +21,10 @@ class ServiceStats:
     only): which lane and plane solved it, its queue wait and lane
     residency (wall seconds on the service's clock), and whether its
     superstep (``deadline_hit``) or wall-clock (``wall_deadline_hit``)
-    deadline evicted it with an anytime result.  The fault ledger
-    (``faults_injected``, ``faults_recovered``, ``lanes_quarantined``,
-    ``retries``) is the JAX package's; it stays 0 until the port has an
-    injector and the self-healing that answers it (ROADMAP item 11)."""
+    deadline evicted it with an anytime result, plus its slice of the
+    self-healing ledger: the faults injected into and recovered on its
+    lanes, the times it was quarantined and re-queued, and the spill
+    deliveries its last lane's spiller retried (``retries``)."""
 
     lane: int = -1
     plane: str = ""

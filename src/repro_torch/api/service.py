@@ -48,12 +48,20 @@ occupied lane has its own cold tier
 (:class:`~repro_torch.core.spill.FrontierSpiller`, created at admission and
 dropped at retirement, carried by checkpoints), pumped after every chunk
 before the finished verdict, so a lane that went quiescent with a cold
-backlog is refilled and resumed instead of retired.  Fault injection
-(``injector=``) is not ported yet and raises ``NotImplementedError`` naming
-its ROADMAP item.  The JAX service's stall watchdog, lane quarantine and
-load shedding wait with the injector (item 11): on this plane an occupied,
-unfinished lane advances every chunk, so only injected stalls could trip
-them.  Request timeouts run as in the JAX package.
+backlog is refilled and resumed instead of retired.
+
+Self-healing is the JAX service's too.  An ``injector``
+(:class:`~repro_torch.faults.FaultInjector`) ticks once a chunk, before the
+chunk: a crashed lane is quarantined and its request re-queued (it sorts
+first and replays from its startup placement, to the undisturbed result),
+and a stalled lane is frozen across the chunk (a :func:`lane_slice`
+snapshot written back by :func:`lane_write_back`).  The stall watchdog,
+with or without an injector, quarantines an occupied, unfinished lane whose
+``rounds`` made no progress for ``config.lane_stall_chunks`` chunks; every
+2 plane faults shed one admission slot and 8 fault-free chunks heal one,
+then rehabilitate one quarantined lane.  The ledger (injected, recovered,
+quarantined, retries) rides in each ticket's ``ServiceStats`` and in
+``stats()``.  Request timeouts run as in the JAX package.
 
 :class:`AsyncSolveService` wraps a service in an asyncio pump for the
 ``launch.serve`` front end: ``await svc.solve(g)`` resolves when the
@@ -70,7 +78,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.api.backends import _patch_spill, _refuse
+from repro_torch.api.backends import _io_policy, _patch_spill
 from repro_torch.api.cache import PlaneCache
 from repro_torch.api.config import SolveConfig
 from repro_torch.api.result import ServiceStats, SolveResult, from_engine_result
@@ -81,9 +89,11 @@ from repro_torch.core.encoding import make_codec
 from repro_torch.core.spill import FrontierSpiller, make_spiller, pump_lanes
 from repro_torch.core.superstep import (
     lane_retire,
+    lane_slice,
     lane_state_from_flat,
     lane_state_to_flat,
     lane_swap_in,
+    lane_write_back,
     make_vacant_lanes,
     step_lanes,
 )
@@ -237,13 +247,39 @@ class _LivePlane:
         # when cfg.frontier_spill is on; they survive chunks and are dropped
         # at retirement
         self.spillers: list = [None] * B
+        # -- self-healing bookkeeping (repro_torch.faults) ---------------------
+        # quarantined lanes (their crashed or stalled occupants were
+        # re-queued; a lane stays out of admission until rehabilitated,
+        # oldest first), load shedding under repeated faults, and the stall
+        # watchdog's per-lane progress snapshots
+        self.quarantined: list = []
+        self.shed = 0
+        self.fault_hits = 0  # accumulator: every 2 plane faults shed 1 lane
+        self.fault_free = 0  # consecutive fault-free chunks (heals shedding)
+        self.last_rounds: list = [0] * B
+        self.stall_chunks: list = [0] * B
 
     def occupied_count(self) -> int:
         return int(self.lanes.occupied().sum())
 
+    def admit_limit(self) -> int:
+        """Lanes usable at once under quarantine and load shedding (never
+        below one: a degraded plane still makes progress)."""
+        return max(1, self.lanes.num_lanes - len(self.quarantined) - self.shed)
+
     def vacant_lane(self) -> Optional[int]:
+        if self.occupied_count() >= self.admit_limit():
+            return None
         free = np.flatnonzero(~self.lanes.occupied())
-        return int(free[0]) if free.size else None
+        for lane in free:
+            if int(lane) not in self.quarantined:
+                return int(lane)
+        # every free lane is quarantined yet the (floor-clamped) budget
+        # admits: rehabilitate the oldest quarantine, so repeated faults can
+        # never darken the whole plane
+        if free.size and self.quarantined:
+            return self.quarantined.pop(0)
+        return None
 
 
 class SolveService:
@@ -276,14 +312,17 @@ class SolveService:
         # monotonic-seconds source for submit/admit/deadline bookkeeping;
         # injectable so wall-clock deadline tests advance time themselves
         self._clock = clock if clock is not None else time.perf_counter
+        # optional repro_torch.faults.FaultInjector: fires its plan at this
+        # service's chunk boundaries; quarantine and re-queueing are the
+        # paired recovery (None: nothing injected, but the watchdog and the
+        # timeout sweeps still guard against organic faults)
+        self.injector = injector
         self.config = config if config is not None else SolveConfig()
         if self.config.use_mesh:
             raise ValueError(
                 "SolveService runs on the vmap virtual-worker plane; "
                 "use_mesh configs are not servable yet"
             )
-        if injector is not None:
-            _refuse("injector")
         self.cache = cache if cache is not None else PlaneCache()
         self.scheduler = LaneScheduler(
             self.config.admission, self.config.tenant_max_lanes
@@ -292,6 +331,9 @@ class SolveService:
         self._results: dict = {}  # ticket -> SolveResult | SolveTimeout
         self._next_ticket = 0
         self._t0 = self._clock()
+        # ticket -> [faults_injected, faults_recovered, lanes_quarantined]:
+        # the per-request slice of the self-healing ledger
+        self._req_faults: dict = {}
         self._stats = {
             "submitted": 0,
             "completed": 0,
@@ -303,6 +345,7 @@ class SolveService:
             "live_lane_chunks": 0,
             "wait_s_total": 0.0,
             "residency_s_total": 0.0,
+            "lanes_quarantined": 0,
             "timed_out": 0,
         }
 
@@ -430,8 +473,9 @@ class SolveService:
     def stats(self) -> dict:
         """Service counters: throughput inputs (completed, chunk_calls),
         plane occupancy (live_lane_chunks / lane_chunks), residency,
-        timeouts, the JAX package's self-healing ledger (zeros: item 11)
-        and, the port's own, ``supersteps`` (the plane supersteps every
+        timeouts, the self-healing ledger (the injector's faults and
+        retries, zeros without one; quarantined and shed lanes) and, the
+        port's own, ``supersteps`` (the plane supersteps every
         chunk ran, each one launch of the expansion kernel per explore
         round for the whole plane) and ``reduce_sweeps`` (the reduction
         sweeps of every plane's explore rounds, see
@@ -445,9 +489,11 @@ class SolveService:
         n_done = s["completed"]
         s["wait_s_mean"] = s["wait_s_total"] / n_done if n_done else 0.0
         s["residency_s_mean"] = s["residency_s_total"] / n_done if n_done else 0.0
-        for name in ("faults_injected", "faults_recovered", "retries",
-                     "lanes_quarantined", "lanes_shed"):
-            s.setdefault(name, 0)  # a JAX service checkpoint may carry them
+        inj = self.injector
+        s["faults_injected"] = inj.faults_injected if inj is not None else 0
+        s["faults_recovered"] = inj.faults_recovered if inj is not None else 0
+        s["retries"] = inj.retries if inj is not None else 0
+        s["lanes_shed"] = sum(p.shed for p in self._planes.values())
         s["reduce_sweeps"] = sum(
             p.counters.reduce_sweeps for p in self._planes.values()
         )
@@ -525,7 +571,9 @@ class SolveService:
                 "stats": dict(self._stats),
             }
         )
-        return ck.save(directory, self._stats["steps"], blocking=blocking)
+        retry, fault_hook = _io_policy(self.injector)
+        return ck.save(directory, self._stats["steps"], blocking=blocking,
+                       retry=retry, fault_hook=fault_hook)
 
     @classmethod
     def restore(
@@ -543,9 +591,8 @@ class SolveService:
         Each plane is rebuilt at its saved key through the normal
         :class:`_LivePlane` path (its plane function comes from ``cache``,
         so a warm cache builds none) and the saved lanes, instance data and
-        FPT bounds are written into it.  The fault-ledger counters of a
-        JAX checkpoint's stats are taken as they are (0 without an
-        injector); ``reduce_sweeps`` resumes from a port checkpoint's
+        FPT bounds are written into it.  The restored service has no
+        injector; ``reduce_sweeps`` resumes from a port checkpoint's
         running sums and counts from the restore for a JAX one."""
         if step is None:
             # walk the retained generations past corrupt snapshots, as the
@@ -653,8 +700,11 @@ class SolveService:
             plane.fpt_bounds[lane] = int(spec.fpt_target(req.k))
         plane.requests[lane] = req
         plane.admit_s[lane] = self._clock() - self._t0
+        plane.last_rounds[lane] = 0
+        plane.stall_chunks[lane] = 0
         if cfg.frontier_spill:
-            plane.spillers[lane] = make_spiller(cfg, spec, g, plane.cap, cfg.num_workers)
+            plane.spillers[lane] = make_spiller(cfg, spec, g, plane.cap, cfg.num_workers,
+                                                self.injector)
         self.cache.note(
             "batch",
             spec,
@@ -676,6 +726,7 @@ class SolveService:
             waited = now - req.submit_s
             if waited >= budget:
                 self.scheduler.remove(req)
+                self._req_faults.pop(req.ticket, None)
                 self._results[req.ticket] = SolveTimeout(
                     req.ticket, result=None, waited_s=waited
                 )
@@ -683,28 +734,110 @@ class SolveService:
                 out.append(req.ticket)
         return out
 
+    def _quarantine(self, plane: _LivePlane, lane: int, *, injected: int,
+                    recovered: int) -> None:
+        """Retire a crashed or stalled lane, quarantine it and push its
+        occupant back through the scheduler.  The old ticket sorts first in
+        both admission orders, so re-admission is deterministic, and
+        :meth:`_admit_into` rebuilds the instance from the same startup
+        placement (fresh spiller, full replay): the re-run's result is the
+        undisturbed solve's."""
+        req = plane.requests[lane]
+        lane_retire(plane.lanes, lane)
+        plane.requests[lane] = None
+        plane.spillers[lane] = None
+        plane.stall_chunks[lane] = 0
+        if lane not in plane.quarantined:
+            plane.quarantined.append(lane)
+        self._stats["lanes_quarantined"] += 1
+        if req is not None:
+            self.scheduler.push(req)
+            ledger = self._req_faults.setdefault(req.ticket, [0, 0, 0])
+            ledger[0] += injected
+            ledger[1] += recovered
+            ledger[2] += 1
+
     def _step_plane(self, plane: _LivePlane) -> list:
-        occupied = plane.lanes.occupied()
+        inj = self.injector
         self._stats["chunk_calls"] += 1
         self._stats["lane_chunks"] += plane.lanes.num_lanes
-        self._stats["live_lane_chunks"] += int(occupied.sum())
+        self._stats["live_lane_chunks"] += plane.occupied_count()
 
+        n_faults = 0
+        frozen: dict = {}
+        if inj is not None:
+            inj.step_boundary()
+            # crashes: the occupant's state is lost at this boundary;
+            # quarantine the lane and re-queue the request (the recovery: a
+            # replay from its startup placement)
+            live = [int(x) for x in np.flatnonzero(plane.lanes.occupied())]
+            for lane in inj.take_crashes(live):
+                self._quarantine(plane, lane, injected=1, recovered=1)
+                inj.note_recovered("crash")
+                n_faults += 1
+            # stalls: snapshot before the chunk, write back after it, so the
+            # lane makes no progress and the watchdog below catches it
+            live = [int(x) for x in np.flatnonzero(plane.lanes.occupied())]
+            for lane in inj.stalled_lanes(live):
+                frozen[lane] = (lane_slice(plane.lanes, lane),
+                                bool(plane.lanes.done[lane]),
+                                int(plane.lanes.rounds[lane]))
+
+        occupied = plane.lanes.occupied()
         plane.lanes, ran, hot = step_lanes(
             plane.plane, plane.datas, plane.lanes, plane.fpt_bounds, plane.counters
         )
         self._stats["supersteps"] += ran
+        for lane, (worker, done_snap, rounds_snap) in frozen.items():
+            lane_write_back(plane.lanes, lane, worker, done_snap, rounds_snap)
         # the service's one host read a chunk (the plane read done once a
         # superstep already)
         done_h = plane.lanes.done.cpu().numpy()
         rounds_h = plane.lanes.rounds.cpu().numpy()
+
+        # the stall watchdog: an occupied, unfinished lane whose round counter
+        # made no progress for lane_stall_chunks chunks is quarantined and its
+        # request re-queued (this also resolves injected stall windows;
+        # organic stalls heal the same way)
+        for lane in [int(x) for x in np.flatnonzero(occupied & ~done_h)]:
+            if int(rounds_h[lane]) == plane.last_rounds[lane]:
+                plane.stall_chunks[lane] += 1
+            else:
+                plane.stall_chunks[lane] = 0
+                plane.last_rounds[lane] = int(rounds_h[lane])
+            if plane.stall_chunks[lane] >= self.config.lane_stall_chunks:
+                cleared = inj.clear_stall(lane) if inj is not None else 0
+                self._quarantine(plane, lane, injected=cleared, recovered=cleared)
+                occupied[lane] = False
+                frozen.pop(lane, None)
+                n_faults += 1
+
+        # graceful degradation: every 2 plane faults shed one admission slot
+        # (down to one usable lane); 8 fault-free chunks in a row heal one
+        # shed slot, then rehabilitate one quarantined lane
+        if n_faults:
+            plane.fault_free = 0
+            plane.fault_hits += n_faults
+            while plane.fault_hits >= 2:
+                plane.fault_hits -= 2
+                if plane.shed < plane.lanes.num_lanes - 1:
+                    plane.shed += 1
+        else:
+            plane.fault_free += 1
+            if plane.fault_free >= 8:
+                plane.fault_free = 0
+                if plane.shed > 0:
+                    plane.shed -= 1
+                elif plane.quarantined:
+                    plane.quarantined.pop(0)
+
         if self.config.frontier_spill:
             # the pump runs BEFORE the finished verdict: a lane that went
             # quiescent with a cold backlog is refilled and resumed, not
-            # retired.  Only occupied lanes hold a spiller.  The JAX service
-            # skips a lane its injector stalled this chunk (stale hot
-            # counts); the port has no injector and no stalls yet (ROADMAP
-            # item 11), so there is nothing to skip
-            pump_lanes(plane.lanes, plane.spillers, done_h, hot, plane.fpt_bounds)
+            # retired.  Only occupied lanes hold a spiller; a lane frozen
+            # this chunk is skipped (its hot counts are stale)
+            pump_lanes(plane.lanes, plane.spillers, done_h, hot, plane.fpt_bounds,
+                       frozen)
 
         now = self._clock() - self._t0
         timeout_s = self.config.request_timeout_s
@@ -752,8 +885,10 @@ class SolveService:
                 num_workers=self.config.num_workers,
                 packed_status=self.config.packed_status,
             )
-            _patch_spill(r, plane.spillers[lane])
+            sp = plane.spillers[lane]
+            _patch_spill(r, sp)
             res = from_engine_result(r, problem=self.spec.name, backend="spmd")
+            fi, fr, fq = self._req_faults.pop(req.ticket, (0, 0, 0))
             res.stats.service = ServiceStats(
                 lane=lane,
                 plane=str(plane.key),
@@ -766,6 +901,10 @@ class SolveService:
                     and lane not in timed_out
                 ),
                 wall_deadline_hit=lane in over_wall,
+                faults_injected=fi,
+                faults_recovered=fr,
+                lanes_quarantined=fq,
+                retries=sp.delivery_retries if sp is not None else 0,
             )
             if lane in timed_out:
                 self._results[req.ticket] = SolveTimeout(

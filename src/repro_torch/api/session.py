@@ -88,7 +88,9 @@ class SolverSession:
         **backend_kw,
     ) -> SolveResult:
         """Solve one instance; ``backend_kw`` passes backend-specific extras
-        (spmd: ``initial_state``).
+        (spmd: ``initial_state``, and ``injector``, a
+        :class:`~repro_torch.faults.FaultInjector` whose faults the solve
+        heals).
 
         ``checkpoint_dir``/``resume_from`` override the config's durability
         knobs for THIS call (spmd): a
@@ -110,7 +112,7 @@ class SolverSession:
     ) -> BatchSolveResult:
         """Solve B instances: on one batched plane per W bucket (spmd) or
         one after another (sequential); the durability knobs as in
-        :meth:`solve`."""
+        :meth:`solve`, and ``backend_kw`` too (spmd: ``injector``)."""
         return self.backend.solve_many(
             self.problem, list(graphs),
             self._call_config(checkpoint_dir, resume_from), self.cache,
@@ -228,7 +230,9 @@ class SolverSession:
         >>> svc = session.serve(service_lanes=8)
         >>> t = svc.submit(g); svc.drain(); svc.result(t)
 
-        spmd backend only; ``injector`` is refused (ROADMAP queue 1, item 11).
+        spmd backend only; ``injector`` (a
+        :class:`~repro_torch.faults.FaultInjector`) fires its plan at the
+        service's chunk boundaries, and the service heals it.
         """
         from repro_torch.api.service import SolveService
 

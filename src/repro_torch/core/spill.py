@@ -362,21 +362,24 @@ def make_spiller(cfg, problem, graph, capacity: int, num_workers: int,
     )
 
 
-def pump_lanes(lanes, spillers, done_h, hot, fpt_bounds=None) -> None:
+def pump_lanes(lanes, spillers, done_h, hot, fpt_bounds=None, frozen=()) -> None:
     """The per-lane spill pump of a batched plane after a chunk — the one
     shared by ``solve_many`` and the live service.  ``spillers[b]`` is lane
     b's spiller (None: no pump); ``done_h`` the (B,) host done flags,
     ``hot`` the chunk's (B, P) pending counts, ``fpt_bounds`` the (B,) FPT
-    targets (None outside FPT).  A lane whose FPT bound was hit is finished
-    whatever its backlog; a done lane that the pump refilled is resumed in
-    place (:func:`~repro_torch.core.superstep.lane_resume`) and in
-    ``done_h``."""
+    targets (None outside FPT).  A lane in ``frozen`` (the service's lanes
+    stalled this chunk and written back) is not pumped: its hot counts are
+    stale.  A lane whose FPT bound was hit is finished whatever its backlog;
+    a done lane that the pump refilled is resumed in place
+    (:func:`~repro_torch.core.superstep.lane_resume`) and in ``done_h``."""
     from repro_torch.core.superstep import lane_resume
 
     hot_h = hot.cpu().numpy()
     best_h = bounds_h = None
     for lane, sp in enumerate(spillers):
-        if sp is None or not sp.wants_pump(hot_h[lane], bool(done_h[lane])):
+        if sp is None or lane in frozen:
+            continue
+        if not sp.wants_pump(hot_h[lane], bool(done_h[lane])):
             continue
         if bool(done_h[lane]) and fpt_bounds is not None:
             if best_h is None:

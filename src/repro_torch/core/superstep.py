@@ -464,8 +464,10 @@ def build_plane_fn(problem: BranchingProblem, **knobs):
 # never compacts: it keeps one plane of fixed lanes, admits an instance into
 # a vacant lane (:func:`lane_swap_in`) and frees it again
 # (:func:`lane_retire`); the spill pump un-freezes a lane its cold tier
-# refilled (:func:`lane_resume`).  Those verbs write the lane's slice in
-# place, so a lane index stays valid for the plane's whole life.
+# refilled (:func:`lane_resume`), and a stalled lane is frozen across a
+# chunk by a snapshot (:func:`lane_slice`) written back after it
+# (:func:`lane_write_back`).  Those verbs write the lane's slice in place,
+# so a lane index stays valid for the plane's whole life.
 
 
 class LaneState(NamedTuple):
@@ -528,6 +530,29 @@ def lane_swap_in(
     lanes.done[lane] = False
     lanes.rounds[lane] = 0
     lanes.tag[lane] = tag
+    return lanes
+
+
+def lane_slice(lanes: LaneState, lane: int) -> WorkerState:
+    """A COPY of one lane's (P, ...) worker state.  Not a view: the lane
+    verbs and the spill pump write the lane tensors in place, and a snapshot
+    must not follow them."""
+    return map_state(lambda x: x[lane].clone(), lanes.worker)
+
+
+def lane_write_back(
+    lanes: LaneState, lane: int, worker: WorkerState, done, rounds
+) -> LaneState:
+    """Overwrite ``lane``, in place, with a snapshot taken by
+    :func:`lane_slice`: the (P, ...) ``worker`` state plus the exact
+    ``done`` flag and ``rounds`` counter (where :func:`lane_swap_in` resets
+    both); returns ``lanes``.  The tag is untouched: the occupant never
+    changed.  The service freezes a stalled lane across a chunk this way: the
+    plane steps it, then the snapshot is written back, so the lane made no
+    progress."""
+    map_state(lambda full, one: full[lane].copy_(one), lanes.worker, worker)
+    lanes.done[lane] = bool(done)
+    lanes.rounds[lane] = int(rounds)
     return lanes
 
 

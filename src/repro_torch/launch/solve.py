@@ -1,15 +1,17 @@
 """Solver driver of the port: spmd or sequential, one config.
 
-The port of ``repro/launch/solve.py`` without its chaos flags: the same
-graph flags, the same config flags (a ``--config`` JSON is read by both
-packages alike), the same checkpoint flags (``--checkpoint-dir``,
-``--checkpoint-every``, and ``--resume DIR``, which rebuilds the solve from
-a checkpoint of either package), the same spill flags (``--spill``,
-``--spill-codec``: a saturated frontier spills to the host cold tier
-instead of dropping tasks) and the same ``[solve] best=... rounds=...``
-lines.  Several DIMACS files (``--files``) and/or ``--batch B`` generated
-instances (consecutive seeds) go to ``solve_many``, one batched plane per
-W bucket.  It runs on the card unless ``--device cpu`` asks for the CPU.
+The port of ``repro/launch/solve.py``: the same graph flags, the same
+config flags (a ``--config`` JSON is read by both packages alike), the same
+checkpoint flags (``--checkpoint-dir``, ``--checkpoint-every``, and
+``--resume DIR``, which rebuilds the solve from a checkpoint of either
+package), the same spill flags (``--spill``, ``--spill-codec``: a saturated
+frontier spills to the host cold tier instead of dropping tasks), the same
+chaos flags (``--chaos N --chaos-seed S``: N seeded faults of
+``repro_torch.faults``, healed, with the injector's report printed) and the
+same ``[solve] best=... rounds=...`` lines.  Several DIMACS files
+(``--files``) and/or ``--batch B`` generated instances (consecutive seeds)
+go to ``solve_many``, one batched plane per W bucket.  It runs on the card
+unless ``--device cpu`` asks for the CPU.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --graph gnp --n 600 \\
@@ -23,6 +25,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 \
       --p 0.28 --workers 4 --steps-per-round 2 --chunk-rounds 2 \
       --capacity 16 --spill
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 48 \
+      --p 0.28 --workers 4 --steps-per-round 2 --chunk-rounds 1 \
+      --checkpoint-dir ck --chaos 8 --chaos-seed 3
 """
 
 from __future__ import annotations
@@ -189,6 +194,14 @@ def main(argv=None):
                     help="resume a checkpointed solve (dir or step_N subdir); "
                          "problem/config/graphs come from the checkpoint, "
                          "explicit flags override non-trajectory knobs")
+    ap.add_argument("--chaos", type=int, default=None, metavar="N",
+                    help="deterministic fault injection (spmd): fire N "
+                         "random faults from repro_torch.faults (lane "
+                         "crashes, stalls, payload corruption, checkpoint "
+                         "I/O errors) and self-heal; results stay those of "
+                         "a fault-free run")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for the --chaos fault plan (default 0)")
     args = ap.parse_args(argv)
 
     if args.resume:
@@ -214,12 +227,25 @@ def main(argv=None):
     session = SolverSession(
         problem=spec, backend=backend, config=cfg, device=args.device
     )
+
+    injector = None
+    if args.chaos is not None:
+        if backend.name != "spmd":
+            raise SystemExit("--chaos needs the spmd engine")
+        from repro_torch.faults import FaultInjector, FaultPlan
+
+        plan = FaultPlan.random(args.chaos_seed, n_events=args.chaos, lanes=cfg.lanes)
+        injector = FaultInjector(plan)
+        print(f"[solve] chaos: {args.chaos} seeded fault(s) "
+              f"(seed {args.chaos_seed}): {plan.counts()}")
+    extra = {"injector": injector} if injector is not None else {}
+
     batch_graphs, batch_labels = build_graphs(args)
     if batch_graphs:
         print(f"[solve] batch of {len(batch_graphs)} instances "
               f"[{spec.name}] on {backend.name}, "
               f"workers/instance={cfg.num_workers}")
-        res = session.solve_many(batch_graphs)
+        res = session.solve_many(batch_graphs, **extra)
         for label, r in zip(batch_labels, res.results):
             print(f"[solve]   {label}: best={r.best_size} rounds={r.rounds} "
                   f"nodes={r.nodes_expanded} transfers={r.tasks_transferred}")
@@ -228,12 +254,14 @@ def main(argv=None):
               f"({len(batch_graphs) / max(res.wall_s, 1e-9):.2f} inst/s), "
               f"{len(res.buckets)} bucket(s), {res.compactions} "
               f"compaction(s); cache: {session.cache_stats()}")
+        if injector is not None:
+            print(f"[solve] chaos report: {injector.report()}")
         return
 
     g = build_graph(args)
     print(f"[solve] graph n={g.n} m={g.num_edges} engine={backend.name} "
           f"problem={spec.name}")
-    r = session.solve(g)
+    r = session.solve(g, **extra)
     line = (f"[solve] best={r.best_size} rounds={r.rounds} "
             f"nodes={r.nodes_expanded} transfers={r.tasks_transferred} "
             f"wall={r.wall_s:.2f}s")
@@ -252,6 +280,8 @@ def main(argv=None):
                      f"readmitted={s.readmitted_tasks} "
                      f"cold_peak={s.cold_bytes_peak}B")
     print(line)
+    if injector is not None:
+        print(f"[solve] chaos report: {injector.report()}")
 
 
 if __name__ == "__main__":

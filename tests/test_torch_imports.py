@@ -7,7 +7,8 @@
 * no source file under ``src/repro_torch``, and not ``chip_smoke.py``,
   imports them (AST scan);
 * ``SolverSession()`` with CUDA absent raises instead of running on the CPU;
-* what the port does not carry yet refuses with its ROADMAP item.
+* what the port does not carry yet refuses with its ROADMAP item, and fault
+  injection, once refused, now runs.
 """
 
 import ast
@@ -78,6 +79,9 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.core.encoding",
         "repro_torch.core.spill",
         "repro_torch.core.frontier",
+        "repro_torch.faults",
+        "repro_torch.faults.plan",
+        "repro_torch.faults.injector",
     ):
         assert name in report["modules"]
 
@@ -94,7 +98,8 @@ def _imported_roots(path: pathlib.Path):
 
 def test_sources_import_neither_jax_nor_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for name in ("core/encoding.py", "core/spill.py"):
+    for name in ("core/encoding.py", "core/spill.py", "faults/__init__.py",
+                 "faults/plan.py", "faults/injector.py"):
         assert PKG / name in files
     offenders = [
         (str(p.relative_to(ROOT)), root)
@@ -128,11 +133,19 @@ def test_unported_features_refuse():
         session = SolverSession(config=SolveConfig(num_workers=2, **kw), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             session.solve(g)
-    # the live service: fault injection waits for item 11
+    # fault injection is ported (item 11): a one-crash plan on the live
+    # service is injected and recovered
     from repro_torch.api import SolveService
+    from repro_torch.faults import FaultEvent, FaultInjector, FaultPlan
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        SolveService("max_clique", SolveConfig(num_workers=2), injector=object(),
-                     device="cpu")
+    inj = FaultInjector(FaultPlan(events=(FaultEvent("crash", at=1),)))
+    svc = SolveService("max_clique", SolveConfig(num_workers=2, steps_per_round=2,
+                                                 chunk_rounds=1), injector=inj,
+                       device="cpu")
+    t = svc.submit(erdos_renyi(16, 0.4, 0))
+    svc.drain()
+    assert svc.result(t).found
+    assert inj.injected["crash"] == inj.recovered["crash"] == 1
+    assert svc.stats()["lanes_quarantined"] == 1
     with pytest.raises(ValueError, match="ROADMAP queue 1, item 12"):
         SolverSession(backend="protocol_sim", device="cpu")

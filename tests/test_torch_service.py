@@ -19,8 +19,9 @@ step-by-step parity run against the JAX package's service.
 * the JAX test ``test_wall_deadline_survives_checkpoint_restore``: a
   request's ``deadline_s`` rides through ``checkpoint()``/``restore()``
   (the rest of the service's durability is ``tests/test_torch_durability.py``);
-* the JAX service's fault injection is refused with its ROADMAP item
-  (spill is held against the JAX service in ``tests/test_torch_spill.py``).
+* the service takes an injector (fault injection and self-healing are held
+  against the JAX service in ``tests/test_torch_faults.py``, spill in
+  ``tests/test_torch_spill.py``).
 """
 
 import json
@@ -343,14 +344,23 @@ def test_wall_deadline_survives_checkpoint_restore(tmp_path):
 
 
 def test_unported_service_features_refuse(tmp_path):
-    """What the JAX service does beyond the live plane, its durability and
-    its spill refuses with its ROADMAP item."""
-    cfg = SolveConfig(num_workers=2, service_lanes=2)
-    svc = SolveService("vertex_cover", cfg, **CPU)
-    svc.submit(erdos_renyi(12, 0.3, 0), deadline_s=5.0)
-    svc.step()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        SolveService("vertex_cover", cfg, injector=object(), **CPU)
+    """The JAX service's fault injection, refused until ROADMAP item 11, now
+    runs: a one-crash plan is injected, the lane quarantined and the request
+    replayed to its solo result, with the ledger in its ``ServiceStats``."""
+    from repro_torch.faults import FaultEvent, FaultInjector, FaultPlan
+
+    cfg = SolveConfig(num_workers=2, steps_per_round=2, chunk_rounds=1, service_lanes=2)
+    g = erdos_renyi(20, 0.3, 0)
+    inj = FaultInjector(FaultPlan(events=(FaultEvent("crash", at=1),)))
+    svc = SolveService("vertex_cover", cfg, injector=inj, **CPU)
+    t = svc.submit(g)
+    svc.drain()
+    r = svc.result(t)
+    solo = SolverSession(config=cfg, **CPU).solve(g)
+    assert _record(r) == _record(solo)
+    s = r.stats.service
+    assert (s.faults_injected, s.faults_recovered, s.lanes_quarantined) == (1, 1, 1)
+    assert inj.injected["crash"] == inj.recovered["crash"] == 1
 
 
 # -- 4. deterministic scheduling -----------------------------------------------

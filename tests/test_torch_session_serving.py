@@ -121,8 +121,16 @@ def test_serve_needs_spmd_and_passes_device_and_cache():
     t = svc.submit(g)
     svc.drain()
     _same(solo, svc.result(t))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        session.serve(injector=object())
+    # serve() passes an injector through to the service, which heals it
+    from repro_torch.faults import FaultEvent, FaultInjector, FaultPlan
+
+    inj = FaultInjector(FaultPlan(events=(FaultEvent("crash", at=1),)))
+    svc = session.serve(service_lanes=2, injector=inj)
+    assert svc.injector is inj
+    t = svc.submit(g)
+    svc.drain()
+    _same(solo, svc.result(t))
+    assert inj.injected["crash"] == inj.recovered["crash"] == 1
 
 
 def test_service_without_cuda_raises(monkeypatch):
