@@ -154,7 +154,27 @@ Phases (any failed check raises, so the exit code is not 0):
    ``solve_many``, one lane crashed: both equal phase 4's golden.  Every
    faulted path launches exactly one fused expansion per explore round its
    plane runs, replays included; the kernels line gives them as
-   ``fault_launches``.
+   ``fault_launches``;
+15. the host backends (run after phase 14) — (a) ``protocol_sim`` and
+   ``centralized`` through ``SolverSession(device="cuda")`` (the
+   simulators run on the host) on G(300, 4/299, seed 0) at 32 and 128
+   workers with the optimized codec and at 128 with the basic one, and on
+   max clique over ``erdos_renyi(20, 0.4, seeds 0-3)``: each result's
+   ``to_dict()`` (less its wall) equal to the JAX-made
+   ``src/repro_torch/data/golden_sim.json`` (whose failed requests are 0);
+   then the 128-worker optimized run once more under ``cProfile``, equal
+   to its golden, with the split of its host time printed; (b) the SPMD
+   engine on the same G(300) at 128 workers: the verified sequential
+   optimum (157), one ``vc_expand`` per explore round; (c) the benchmark
+   mirrors ``repro_torch.bench``: ``speedup`` (``gnp80_p2_hard`` at P 2-32
+   and ``phat_48_easy``, both codecs, both simulators, each at the
+   sequential optimum; its donation rows on the card, one ``vc_expand``
+   per explore round), and ``clique_smoke`` with ``encoding_bytes`` held
+   to the exact pins of ``benchmarks/baseline.json``; (d) the example
+   twins ``repro_torch.examples.quickstart``, ``solve_dimacs`` and
+   ``serve_solver`` as programs on the card, started together: each exits
+   0.  Each simulator's host wall and each SPMD wall is printed; the
+   kernels line gives (b)'s and (c)'s launches as ``protocol_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -1989,6 +2009,206 @@ def _faults_clique(dev) -> int:
 
 
 
+# -- the host backends beside the SPMD engine (phase 15) ---------------------------
+
+# the example twins phase 15 runs as programs, all started together
+EXAMPLE_TWINS = ("quickstart", "solve_dimacs", "serve_solver")
+EXAMPLE_TIMEOUT_S = 600
+
+
+def _sim_dict(r) -> dict:
+    d = json.loads(json.dumps(r.to_dict()))
+    d.pop("wall_s")
+    return d
+
+
+def _protocol_goldens(dev, golden: dict) -> None:
+    """(a) Every case of ``golden_sim.json`` through ``SolverSession`` with
+    the card as its device: equal to the JAX record field for field."""
+    from repro_torch.api import SolveConfig, SolverSession
+
+    clique_walls = {}
+    for case in golden["cases"]:
+        g = _build_graph(case["graph"])
+        session = SolverSession(problem=case["problem"], backend=case["backend"],
+                                config=SolveConfig(**case["solve_kw"]), device=dev)
+        t = time.perf_counter()
+        r = session.solve(g)
+        wall = time.perf_counter() - t
+        got = _sim_dict(r)
+        label = f"{case['problem']} {case['backend']} {case['solve_kw']} {case['graph']}"
+        check(got == case["result"], f"protocol golden {label}: {got} != the JAX record")
+        if case["problem"] == "vertex_cover":
+            s = r.stats
+            print(f"[smoke] protocol {case['backend']} G(300, 4/299, 0) {case['solve_kw']}: "
+                  f"== JAX golden, best {r.best_size}, {s.ticks} ticks, {r.nodes_expanded} "
+                  f"nodes, {r.tasks_transferred} transfers, {s.failed_requests} failed, "
+                  f"{s.total_bytes} bytes ({s.center_bytes} through the center), "
+                  f"host wall {wall:.3f} s")
+        else:
+            clique_walls.setdefault(case["backend"], []).append(round(wall, 4))
+    print(f"[smoke] protocol max clique G(20, 0.4, seeds 0-3), 8 workers: both simulators "
+          f"== JAX golden; host walls {clique_walls} s")
+
+
+# where a simulator run's host time goes: each part is the time under the
+# calls the simulator (core/) makes into it (cProfile's per-edge cumulative
+# time)
+PROFILE_PARTS = {
+    "brancher": ("repro_torch/problems/", "repro_torch/graphs/"),
+    "task tree": ("repro_torch/core/task_tree.py",),
+    "center": ("repro_torch/core/center.py",),
+    "codec": ("repro_torch/core/encoding.py",),
+}
+
+
+def _protocol_profile(dev, golden: dict) -> None:
+    """(a') One n = 300 ``protocol_sim`` run (128 workers, optimized codec)
+    again, under ``cProfile``: equal to its golden, and the split of its
+    host time between the brancher, the network, the task trees, the center
+    and the codec."""
+    import cProfile
+    import pstats
+
+    from repro_torch.api import SolveConfig, SolverSession
+
+    case = next(c for c in golden["cases"] if c["problem"] == "vertex_cover"
+                and c["backend"] == "protocol_sim"
+                and c["solve_kw"] == {"num_workers": PAPER_WORKERS, "codec": "optimized"})
+    g = _build_graph(case["graph"])
+    session = SolverSession(backend="protocol_sim", config=SolveConfig(**case["solve_kw"]),
+                            device=dev)
+    prof = cProfile.Profile()
+    r = prof.runcall(session.solve, g)
+    check(_sim_dict(r) == case["result"], "profiled protocol_sim run != the JAX record")
+    table = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+
+    def under(prefixes) -> float:
+        inside = lambda fn: any(p in fn[0].replace(os.sep, "/") for p in prefixes)
+        return sum(edge[3] for fn, (*_, callers) in table.items() if inside(fn)
+                   for caller, edge in callers.items()
+                   if not inside(caller) and "repro_torch/core/" in caller[0].replace(os.sep, "/"))
+
+    total = next(st[3] for fn, st in table.items() if fn[2] == "run_protocol_sim")
+    parts = {name: under(prefixes) for name, prefixes in PROFILE_PARTS.items()}
+    parts["network"] = sum(st[3] for fn, st in table.items()
+                           if fn[0].endswith("protocol_sim.py") and fn[2] in ("send", "deliver"))
+    parts["the loop's own"] = total - sum(parts.values())
+    split = ", ".join(f"{name} {t:.3f} s ({t / total:.1%})" for name, t in parts.items())
+    print(f"[smoke] protocol profile: protocol_sim G(300, 4/299, 0) {case['solve_kw']} under "
+          f"cProfile == JAX golden; run_protocol_sim {total:.3f} s of host time: {split}")
+
+
+def _protocol_spmd(dev, golden: dict) -> dict:
+    """(b) The SPMD engine on the same G(300) at 128 workers; returns its
+    launches."""
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.kernels import counts
+    from repro_torch.problems.sequential import verify_cover
+
+    seq = golden["sequential"]
+    g = _build_graph(seq["graph"])
+    cfg = SolveConfig(num_workers=PAPER_WORKERS)
+    session = SolverSession(config=cfg, device=dev)
+    counts.reset()
+    t = time.perf_counter()
+    r = session.solve(g)
+    wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    check(r.best_size == seq["best_size"] and verify_cover(g, r.best_sol),
+          f"SPMD on G(300, 4/299, 0): best {r.best_size}, want the verified "
+          f"{seq['best_size']} of the JAX sequential reference")
+    _per_round("SPMD on G(300)", launches, "vc_expand", cfg.steps_per_round, r.rounds)
+    print(f"[smoke] protocol SPMD G(300, 4/299, 0), {PAPER_WORKERS} workers: best "
+          f"{r.best_size} == the sequential optimum, verified; {r.rounds} supersteps, "
+          f"{r.nodes_expanded} nodes, {r.tasks_transferred} transfers, wall {wall:.3f} s; "
+          f"launches={launches}")
+    return launches
+
+
+def _protocol_bench(dev) -> dict:
+    """(c) The benchmark mirrors: ``speedup`` (the simulators on the host,
+    its donation rows on the card), and ``clique_smoke`` on the card held
+    with ``encoding_bytes`` to the exact pins of
+    ``benchmarks/baseline.json``; returns their launches."""
+    from repro_torch.bench import clique_smoke, encoding_bytes, speedup
+    from repro_torch.bench.run import BASELINE, check_pins
+    from repro_torch.kernels import counts
+
+    counts.reset()
+    t = time.perf_counter()
+    rows = speedup.run(csv=False, device=dev)  # asserts every optimum
+    wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    sims = [r for r in rows if "codec" in r]
+    donation = [r for r in rows if "donate_k" in r]
+    check(len(sims) == 14, f"speedup: {len(sims)} simulator rows, want 14")
+    _per_round("speedup donation rows", launches, "vc_expand",
+               speedup.DONATION_STEPS_PER_ROUND, sum(r["rounds"] for r in donation))
+    for r in sims:
+        if r["graph"] == "gnp80_p2_hard":
+            print(f"[smoke] speedup {r['graph']} P={r['workers']} {r['codec']}: seq "
+                  f"{r['seq_ticks']} ticks, semi {r['semi_ticks']} ({r['semi_speedup']}x, "
+                  f"{r['semi_bytes']} B), central {r['central_ticks']} "
+                  f"({r['central_speedup']}x, {r['central_bytes']} B), "
+                  f"{r['semi_failed']} failed")
+    print(f"[smoke] speedup: 14 simulator rows at the sequential optimum; "
+          f"donation rows {[(r['workers'], r['donate_k'], r['rounds'], r['tasks_moved']) for r in donation]} "
+          f"on the card; wall {wall:.3f} s (simulators on the host); launches={launches}")
+    counts.reset()
+    clique = clique_smoke.run(smoke=True, device=dev)
+    clique_launches = counts.snapshot()
+    check(set(clique_launches) == {"clique_expand"},
+          f"clique_smoke launched {clique_launches}: want clique_expand only")
+    pins = check_pins(json.loads(BASELINE.read_text()),
+                      {"clique_smoke": clique, "encoding_bytes": encoding_bytes.run(csv=False)})
+    check(pins == [], f"baseline pins violated: {pins}")
+    print(f"[smoke] clique_smoke sizes {clique['sizes']} and encoding_bytes == the baseline pins; "
+          f"clique_smoke launches={clique_launches}")
+    return {k: launches.get(k, 0) + clique_launches.get(k, 0)
+            for k in ("vc_expand", "clique_expand")}
+
+
+def _protocol_examples(dev) -> None:
+    """(d) The example twins as programs, all started together: each exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t = time.perf_counter()
+    try:
+        for name in EXAMPLE_TWINS:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}", "--device", str(dev)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, proc in procs.items():
+            out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            check(proc.returncode == 0,
+                  f"example twin {name} exited {proc.returncode}:\n{out[-4000:]}")
+            tail = out.strip().splitlines()[-1] if out.strip() else ""
+            print(f"[smoke] example twin {name}: exit 0 at {time.perf_counter() - t:.3f} s; "
+                  f"last line: {tail}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_protocol(dev) -> dict:
+    """The host backends beside the SPMD engine: (a) ``protocol_sim`` and
+    ``centralized`` through ``SolverSession(device=dev)`` equal to the
+    JAX-made ``golden_sim.json``; (b) the SPMD engine on its G(300) at 128
+    workers; (c) the benchmark mirrors; (d) the example twins as programs.
+    Returns the launches of (b) and (c)."""
+    golden = json.loads((DATA / "golden_sim.json").read_text())
+    _protocol_goldens(dev, golden)
+    _protocol_profile(dev, golden)
+    spmd = _protocol_spmd(dev, golden)
+    bench = _protocol_bench(dev)
+    _protocol_examples(dev)
+    return {k: spmd.get(k, 0) + bench[k] for k in ("vc_expand", "clique_expand")}
+
+
+
 # -- the LM serving path (phases 8-10) ------------------------------------------
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the
@@ -2611,6 +2831,16 @@ def main() -> None:
     kernels["clique_expand"]["fault_path"] = "max clique in solve_many, one lane crashed, phase 14"
     for name in ("vc_expand", "clique_expand"):
         check(kernels[name]["fault_launches"] > 0, f"no faulted path launched {name}")
+    # and the SPMD runs beside the host backends their sixth
+    protocol = timed("protocol", phase_protocol, dev)
+    kernels["vc_expand"]["protocol_launches"] = protocol["vc_expand"]
+    kernels["vc_expand"]["protocol_path"] = (
+        "beside the host simulators: the SPMD engine on G(300, 4/299, 0) at 128 workers and "
+        "the speedup mirror's donation rows, phase 15")
+    kernels["clique_expand"]["protocol_launches"] = protocol["clique_expand"]
+    kernels["clique_expand"]["protocol_path"] = "the clique_smoke mirror, phase 15"
+    for name in ("vc_expand", "clique_expand"):
+        check(kernels[name]["protocol_launches"] > 0, f"phase 15 launched no {name}")
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

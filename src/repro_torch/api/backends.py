@@ -1,25 +1,26 @@
-"""The port's backends: the spmd solve planes and the sequential reference.
+"""The port's backends: the spmd solve planes, the two discrete-event
+simulators and the sequential reference.
 
-The port of ``repro/api/backends.py``'s ``solve_spmd``, ``solve_many_spmd``
-and its ``Backend`` registry.  The spmd drivers are the JAX package's loops:
-startup scatter, then chunks of up to ``chunk_rounds`` supersteps until
-quiescence (or the FPT bound) or ``max_rounds``, then one host fetch; the
-batched driver adds bucketing by W, pow2 compaction and eager per-lane
-result extraction.  Both take their plane from a :class:`PlaneCache`, and
-both are durable: ``checkpoint_dir`` writes a
+The port of ``repro/api/backends.py``'s ``solve_spmd``, ``solve_many_spmd``,
+its host backends and its ``Backend`` registry. The spmd drivers are the JAX
+package's loops: startup scatter, then chunks of up to ``chunk_rounds``
+supersteps until quiescence (or the FPT bound) or ``max_rounds``, then one
+host fetch; the batched driver adds bucketing by W, pow2 compaction and
+eager per-lane result extraction. Both take their plane from a
+:class:`PlaneCache`, and both are durable: ``checkpoint_dir`` writes a
 :class:`~repro_torch.checkpoint.solve.SolveCheckpoint` every
 ``checkpoint_every`` chunks at the host-sync boundary, and ``resume_from``
 continues from one (either package's) to the result of a run that never
-stopped.  With ``frontier_spill`` each instance gets a
+stopped. With ``frontier_spill`` each instance gets a
 :class:`~repro_torch.core.spill.FrontierSpiller`: after a chunk its host
 pump evicts above the high-water mark into the cold tier and refills below
 the low one, so a saturated frontier drops nothing, and the cold tier rides
-in the checkpoints.  With an ``injector`` (a
+in the checkpoints. With an ``injector`` (a
 :class:`~repro_torch.faults.FaultInjector`) both drivers heal the faults it
 fires at their host-sync boundaries: a crashed solo plane is rebuilt from
-the last good checkpoint (or replayed from the startup placement), a
-crashed lane of the batch is re-admitted from its startup placement, and
-checkpoint I/O errors are retried under the injector's virtual backoff.
+the last good checkpoint (or replayed from the startup placement), a crashed
+lane of the batch is re-admitted from its startup placement, and checkpoint
+I/O errors are retried under the injector's virtual backoff.
 
 Features of the JAX drivers that the port does not carry yet (the mesh) are
 refused with ``NotImplementedError`` naming their ROADMAP item; none is
@@ -41,6 +42,7 @@ from repro_torch.api.result import (
     SolveResult,
     from_engine_result,
     from_sequential,
+    from_sim_result,
 )
 from repro_torch.checkpoint import solve as _ckpt
 from repro_torch.checkpoint import store as _store
@@ -667,6 +669,58 @@ class SpmdBackend(Backend):
         )
 
 
+class ProtocolSimBackend(Backend):
+    """The asynchronous protocol simulator (host; ``device`` is unused)."""
+
+    name = "protocol_sim"
+
+    def solve(self, spec, g, cfg, cache, *, device):
+        from repro_torch.core.protocol_sim import run_protocol_sim
+
+        t0 = time.perf_counter()
+        r = run_protocol_sim(
+            g,
+            num_workers=cfg.num_workers,
+            latency=cfg.latency,
+            policy=cfg.policy,
+            codec_name=cfg.codec,
+            mode=cfg.mode,
+            k=cfg.solo_k(),
+            send_metadata=cfg.send_metadata,
+            max_ticks=cfg.max_ticks,
+            seed=cfg.seed,
+            problem=spec,
+        )
+        wall = time.perf_counter() - t0
+        return from_sim_result(r, problem=spec.name, backend=self.name, wall_s=wall)
+
+
+class CentralizedBackend(Backend):
+    """The fully-centralized baseline simulator (host; ``device`` is
+    unused)."""
+
+    name = "centralized"
+
+    def solve(self, spec, g, cfg, cache, *, device):
+        from repro_torch.core.centralized import run_centralized_sim
+
+        t0 = time.perf_counter()
+        r = run_centralized_sim(
+            g,
+            num_workers=cfg.num_workers,
+            latency=cfg.latency,
+            codec_name=cfg.codec,
+            queue_cap_per_p=cfg.queue_cap_per_p,
+            use_priority_queue=cfg.use_priority_queue,
+            max_ticks=cfg.max_ticks,
+            mode=cfg.mode,
+            k=cfg.solo_k(),
+            problem=spec,
+        )
+        wall = time.perf_counter() - t0
+        return from_sim_result(r, problem=spec.name, backend=self.name, wall_s=wall)
+
+
 class SequentialBackend(Backend):
     """The problem's host reference solver (numpy; ``device`` is unused)."""
 
@@ -681,12 +735,22 @@ class SequentialBackend(Backend):
         return from_sequential(best, sol, stats, problem=spec.name, wall_s=wall)
 
 
-BACKENDS = {b.name: b for b in (SpmdBackend(), SequentialBackend())}
+BACKENDS = {
+    b.name: b
+    for b in (
+        SpmdBackend(),
+        ProtocolSimBackend(),
+        CentralizedBackend(),
+        SequentialBackend(),
+    )
+}
 
-BACKEND_ALIASES = {"seq": "sequential"}
-
-# backends of the JAX package that the port does not carry yet
-NOT_PORTED_BACKENDS = ("protocol_sim", "protocol", "centralized", "central", "centralised")
+BACKEND_ALIASES = {
+    "protocol": "protocol_sim",
+    "central": "centralized",
+    "centralised": "centralized",
+    "seq": "sequential",
+}
 
 
 def known_backends() -> list:
@@ -697,12 +761,6 @@ def get_backend(name) -> Backend:
     """Resolve a backend by name (or pass an instance through)."""
     if isinstance(name, Backend):
         return name
-    if name in NOT_PORTED_BACKENDS:
-        raise ValueError(
-            f"backend {name!r} is not ported to repro_torch yet (ROADMAP "
-            f"queue 1, item 12: host backends); known backends: "
-            f"{', '.join(known_backends())}"
-        )
     key = BACKEND_ALIASES.get(name, name)
     if key not in BACKENDS:
         raise ValueError(

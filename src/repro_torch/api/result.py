@@ -65,8 +65,18 @@ class SolveStats:
     # reduction sweeps: the sum over explore rounds of the largest per-lane
     # trip count of the reduction loop (the JAX package's vmapped
     # while_loop runs that many).  Solo solves only: a batch's rounds serve
-    # all its instances and are counted in LaneStats.reduce_sweeps
-    reduce_sweeps: int = 0
+    # all its instances and are counted in LaneStats.reduce_sweeps.  None
+    # where it is not counted (the host backends, a JAX package's dict): the
+    # dict then leaves it out, as the JAX package's has no such key
+    reduce_sweeps: Optional[int] = 0
+    # -- discrete-event simulator backends ------------------------------------
+    ticks: int = 0
+    failed_requests: int = 0
+    termination_cancelled: int = 0
+    total_bytes: int = 0
+    center_bytes: int = 0
+    msg_count: dict = dataclasses.field(default_factory=dict)
+    msg_bytes: dict = dataclasses.field(default_factory=dict)
     # -- sequential reference -------------------------------------------------
     pruned: int = 0
     solutions: int = 0
@@ -76,10 +86,11 @@ class SolveStats:
 
     @classmethod
     def from_dict(cls, d: dict) -> "SolveStats":
-        """From either package's ``to_dict``: fields the port does not
-        carry (the JAX package's simulator counters) are ignored."""
+        """From either package's ``to_dict``; a dict without
+        ``reduce_sweeps`` gives None."""
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in known and k != "service"}
+        kw.setdefault("reduce_sweeps", None)
         service = d.get("service")
         if service is not None:
             kw["service"] = ServiceStats.from_dict(service)
@@ -107,8 +118,9 @@ class SolveResult:
     """One instance solved by one backend.
 
     ``best_size`` is in the problem's EXTERNAL objective (``-1`` for an
-    unsatisfiable FPT decision); ``rounds`` counts supersteps for spmd and
-    expanded nodes for sequential."""
+    unsatisfiable FPT decision); ``rounds`` counts supersteps for spmd,
+    simulator ticks for the two discrete-event backends and expanded nodes
+    for sequential."""
 
     problem: str
     backend: str
@@ -122,10 +134,14 @@ class SolveResult:
     stats: SolveStats = dataclasses.field(default_factory=SolveStats)
 
     def to_dict(self) -> dict:
-        """JSON-safe view (``best_sol`` as a list of packed u32 words)."""
+        """JSON-safe view (``best_sol`` as a list of packed u32 words;
+        ``reduce_sweeps`` left out where it is None)."""
         d = dataclasses.asdict(self)
         if self.best_sol is not None:
             d["best_sol"] = [int(w) for w in np.asarray(self.best_sol, np.uint32)]
+        if self.stats.reduce_sweeps is None:
+            del d["stats"]["reduce_sweeps"]
+        d["stats"] = _jsonable(d["stats"])
         return d
 
     @classmethod
@@ -172,6 +188,16 @@ class BatchSolveResult:
         return iter(self.results)
 
 
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
 def from_engine_result(r, *, problem: str, backend: str = "spmd") -> SolveResult:
     """Wrap a :class:`repro_torch.core.engine.EngineResult`."""
     return SolveResult(
@@ -201,6 +227,33 @@ def from_engine_result(r, *, problem: str, backend: str = "spmd") -> SolveResult
     )
 
 
+def from_sim_result(r, *, problem: str, backend: str, wall_s: float) -> SolveResult:
+    """Wrap a :class:`repro_torch.core.protocol_sim.SimResult` (both
+    simulators)."""
+    s = r.stats
+    return SolveResult(
+        problem=problem,
+        backend=backend,
+        best_size=r.best_size,
+        best_sol=r.best_sol,
+        found=r.best_sol is not None,
+        wall_s=wall_s,
+        rounds=r.ticks,
+        nodes_expanded=s.nodes_expanded,
+        tasks_transferred=s.tasks_transferred,
+        stats=SolveStats(
+            reduce_sweeps=None,
+            ticks=r.ticks,
+            failed_requests=s.failed_requests,
+            termination_cancelled=s.termination_cancelled,
+            total_bytes=s.total_bytes,
+            center_bytes=s.center_bytes,
+            msg_count=dict(s.msg_count),
+            msg_bytes=dict(s.msg_bytes),
+        ),
+    )
+
+
 def from_sequential(best, sol, stats, *, problem: str, wall_s: float) -> SolveResult:
     """Wrap the sequential reference's ``(best, sol, SeqStats)`` triple."""
     return SolveResult(
@@ -214,6 +267,7 @@ def from_sequential(best, sol, stats, *, problem: str, wall_s: float) -> SolveRe
         nodes_expanded=stats.nodes,
         tasks_transferred=0,
         stats=SolveStats(
+            reduce_sweeps=None,
             pruned=stats.pruned,
             solutions=stats.solutions,
             max_depth=stats.max_depth,

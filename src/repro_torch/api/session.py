@@ -53,8 +53,10 @@ class SolverSession:
     >>> session.solve_many(graphs).results
     >>> t = session.submit(g); session.flush(); session.result(t)
 
-    ``problem`` is a registry name or spec; ``backend`` is ``spmd`` or
-    ``sequential``.  Keyword overrides are applied on top of ``config``:
+    ``problem`` is a registry name or spec; ``backend`` is ``spmd``,
+    ``protocol_sim``, ``centralized`` or ``sequential`` (the last three run
+    on the host, but the session still resolves its device).  Keyword
+    overrides are applied on top of ``config``:
     ``SolverSession(num_workers=4, device="cpu")``.
     """
 

@@ -1,4 +1,11 @@
-"""Solver driver of the port: spmd or sequential, one config.
+"""Solver driver of the port: any registry problem, any backend, one config.
+
+  --engine spmd         the superstep engine on the card (P virtual workers)
+  --engine protocol_sim the asynchronous MPI-protocol simulator, on the host
+                        (alias: protocol)
+  --engine centralized  the fully-centralized baseline, on the host (alias:
+                        central)
+  --engine sequential   the problem's sequential reference (alias: seq)
 
 The port of ``repro/launch/solve.py``: the same graph flags, the same
 config flags (a ``--config`` JSON is read by both packages alike), the same
@@ -17,6 +24,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --graph gnp --n 600 \\
       --p 0.00668 --workers 128 --max-rounds 64
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 --workers 4
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 \\
+      --problem max_clique --engine protocol_sim --workers 8
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu \\
       --problem max_clique --n 20 --p 0.4 --workers 4 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.solve --n 600 --p 0.00668 \\
@@ -84,6 +93,7 @@ CONFIG_FLAGS = {
     "chunk_rounds": "chunk_rounds",
     "mode": "mode",
     "k": "k",
+    "latency": "latency",
     "capacity": "capacity",
     "max_rounds": "max_rounds",
     "checkpoint_dir": "checkpoint_dir",
@@ -148,7 +158,8 @@ def main(argv=None):
                          "the batched plane)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine", default="spmd",
-                    help="backend: spmd, sequential (seq)")
+                    help="backend: spmd, protocol_sim (protocol), centralized "
+                         "(central), sequential (seq)")
     ap.add_argument("--problem", default="vertex_cover")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; there is no silent "
@@ -171,6 +182,8 @@ def main(argv=None):
     ap.add_argument("--chunk-rounds", type=int, default=S)
     ap.add_argument("--mode", default=S, choices=["bnb", "fpt"])
     ap.add_argument("--k", type=int, default=S)
+    ap.add_argument("--latency", type=int, default=S,
+                    help="simulator message latency in ticks")
     ap.add_argument("--capacity", type=int, default=S,
                     help="hot frontier slots per worker "
                          "(default: engine-sized 4n + 8*lanes)")
@@ -279,6 +292,11 @@ def main(argv=None):
             line += (f" spilled={s.spilled_tasks} "
                      f"readmitted={s.readmitted_tasks} "
                      f"cold_peak={s.cold_bytes_peak}B")
+    elif backend.name in ("protocol_sim", "centralized"):
+        line += (f" bytes={s.total_bytes}"
+                 + (f" (center {s.center_bytes})"
+                    f" failed_requests={s.failed_requests}"
+                    if backend.name == "protocol_sim" else ""))
     print(line)
     if injector is not None:
         print(f"[solve] chaos report: {injector.report()}")

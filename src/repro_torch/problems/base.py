@@ -226,6 +226,13 @@ class BranchingProblem:
     sequential: Optional[Callable] = None  # ground-truth reference solver
     verify: Optional[Callable] = None  # (g, sol_mask) -> bool
 
+    # host twins of task_bound/child_bound and the terminal objective, in
+    # the INTERNAL (minimization) sense over (view, mask, sol_mask) numpy
+    # words: what the simulator backends (protocol_sim, centralized) explore
+    host_task_bound: Optional[Callable] = None  # admissible pre-expansion bound
+    host_child_bound: Optional[Callable] = None  # cheap bound at task birth
+    host_terminal_value: Optional[Callable] = None  # internal value of a leaf
+
     record_fields: tuple = RECORD_FIELDS
 
 
@@ -251,6 +258,27 @@ def resolve_expand(problem: BranchingProblem) -> Callable:
     if problem.expand_tasks is not None:
         return problem.expand_tasks
     return compose_expand_tasks(problem)
+
+
+def require_host_bounds(problem: BranchingProblem) -> BranchingProblem:
+    """``problem`` if it carries the host callables the simulator backends
+    explore with, else a ``ValueError`` naming what is missing."""
+    missing = [
+        field
+        for field in (
+            "branch_once_host",
+            "host_task_bound",
+            "host_child_bound",
+            "host_terminal_value",
+        )
+        if getattr(problem, field) is None
+    ]
+    if missing:
+        raise ValueError(
+            f"problem {problem.name!r} cannot run on a host simulator "
+            f"backend: missing {', '.join(missing)} (see BranchingProblem)"
+        )
+    return problem
 
 
 def initial_bound(problem: BranchingProblem, g, mode: str, k) -> int:

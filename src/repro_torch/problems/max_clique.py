@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.graphs.bitgraph import popcount_rows as host_popcount
 from repro_torch.kernels.bitset_ops import ref
 from repro_torch.kernels.bitset_ops.kernel import clique_expand
 from repro_torch.problems import sequential
@@ -61,6 +62,15 @@ def expand_tasks(data: ProblemData, masks, sols, counters=None) -> ExpandResult:
     return ExpandResult.of(clique_expand(data.adj, masks, sols, inst))
 
 
+def host_bound(g, mask, sol_mask) -> int:
+    """Host twin of :func:`bound`: -(|R| + |P|) over numpy words."""
+    return -int(host_popcount(sol_mask) + host_popcount(mask))
+
+
+def host_terminal_value(g, mask, sol_mask) -> int:
+    return -int(host_popcount(sol_mask))
+
+
 SPEC = BranchingProblem(
     name="max_clique",
     objective="maximize |clique|",
@@ -74,4 +84,7 @@ SPEC = BranchingProblem(
     branch_once_host=sequential.branch_once_clique,
     sequential=sequential.solve_sequential_max_clique,
     verify=sequential.verify_clique,
+    host_task_bound=host_bound,
+    host_child_bound=host_bound,
+    host_terminal_value=host_terminal_value,
 )

@@ -30,4 +30,7 @@ SPEC = BranchingProblem(
     branch_once_host=sequential.branch_once_clique,
     sequential=sequential.solve_sequential_mis,
     verify=sequential.verify_independent_set,
+    host_task_bound=max_clique.host_bound,
+    host_child_bound=max_clique.host_bound,
+    host_terminal_value=max_clique.host_terminal_value,
 )

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.graphs.bitgraph import popcount_rows as host_popcount
 from repro_torch.kernels.bitset_ops import ref
 from repro_torch.kernels.bitset_ops.kernel import vc_expand
 from repro_torch.kernels.bitset_ops.ops import degrees_op
@@ -100,6 +101,16 @@ def expand_tasks(data: ProblemData, masks, sols, counters=None) -> ExpandResult:
     return ExpandResult.of(out)
 
 
+def _host_task_bound(g, mask, sol_mask) -> int:
+    """|S| + ceil(E/maxdeg) over numpy words: the host twin of
+    :func:`task_bound`."""
+    return int(host_popcount(sol_mask)) + sequential.lower_bound(g, mask)
+
+
+def _host_child_bound(g, mask, sol_mask) -> int:
+    return int(host_popcount(sol_mask))
+
+
 SPEC = BranchingProblem(
     name="vertex_cover",
     objective="minimize |cover|",
@@ -111,4 +122,7 @@ SPEC = BranchingProblem(
     branch_once_host=sequential.branch_once,
     sequential=sequential.solve_sequential,
     verify=sequential.verify_cover,
+    host_task_bound=_host_task_bound,
+    host_child_bound=_host_child_bound,
+    host_terminal_value=_host_child_bound,  # a leaf's cover size is |S|
 )

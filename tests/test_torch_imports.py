@@ -7,8 +7,9 @@
 * no source file under ``src/repro_torch``, and not ``chip_smoke.py``,
   imports them (AST scan);
 * ``SolverSession()`` with CUDA absent raises instead of running on the CPU;
-* what the port does not carry yet refuses with its ROADMAP item, and fault
-  injection, once refused, now runs.
+* what the port does not carry yet refuses with its ROADMAP item; fault
+  injection and the simulator backends, once refused, now run, the latter
+  equal to the JAX package's.
 """
 
 import ast
@@ -82,6 +83,19 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.faults",
         "repro_torch.faults.plan",
         "repro_torch.faults.injector",
+        "repro_torch.core.center",
+        "repro_torch.core.task_tree",
+        "repro_torch.core.protocol_sim",
+        "repro_torch.core.centralized",
+        "repro_torch.examples.quickstart",
+        "repro_torch.examples.solve_dimacs",
+        "repro_torch.examples.serve_solver",
+        "repro_torch.bench.run",
+        "repro_torch.bench.speedup",
+        "repro_torch.bench.protocol_stats",
+        "repro_torch.bench.encoding_bytes",
+        "repro_torch.bench.balancer_bench",
+        "repro_torch.bench.clique_smoke",
     ):
         assert name in report["modules"]
 
@@ -99,7 +113,12 @@ def _imported_roots(path: pathlib.Path):
 def test_sources_import_neither_jax_nor_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for name in ("core/encoding.py", "core/spill.py", "faults/__init__.py",
-                 "faults/plan.py", "faults/injector.py"):
+                 "faults/plan.py", "faults/injector.py", "core/center.py",
+                 "core/task_tree.py", "core/protocol_sim.py", "core/centralized.py",
+                 "examples/quickstart.py", "examples/solve_dimacs.py",
+                 "examples/serve_solver.py", "bench/run.py", "bench/speedup.py",
+                 "bench/protocol_stats.py", "bench/encoding_bytes.py",
+                 "bench/balancer_bench.py", "bench/clique_smoke.py"):
         assert PKG / name in files
     offenders = [
         (str(p.relative_to(ROOT)), root)
@@ -147,5 +166,12 @@ def test_unported_features_refuse():
     assert svc.result(t).found
     assert inj.injected["crash"] == inj.recovered["crash"] == 1
     assert svc.stats()["lanes_quarantined"] == 1
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 12"):
-        SolverSession(backend="protocol_sim", device="cpu")
+    # so are the simulator backends (item 12): each runs and equals JAX's
+    from repro.api import SolverSession as JaxSession
+    from repro.graphs.generators import erdos_renyi as jax_erdos_renyi
+
+    for backend in ("protocol_sim", "centralized"):
+        got = SolverSession(backend=backend, num_workers=3, device="cpu").solve(g).to_dict()
+        want = JaxSession(backend=backend, num_workers=3).solve(jax_erdos_renyi(12, 0.3, 0)).to_dict()
+        got.pop("wall_s"), want.pop("wall_s")
+        assert got == want
