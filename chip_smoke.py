@@ -174,7 +174,32 @@ Phases (any failed check raises, so the exit code is not 0):
    twins ``repro_torch.examples.quickstart``, ``solve_dimacs`` and
    ``serve_solver`` as programs on the card, started together: each exits
    0.  Each simulator's host wall and each SPMD wall is printed; the
-   kernels line gives (b)'s and (c)'s launches as ``protocol_launches``.
+   kernels line gives (b)'s and (c)'s launches as ``protocol_launches``;
+16. the reference explore path, elasticity, the legacy shims and the
+   benchmark mirrors (run after phase 15) — (a) every solo, FPT and
+   ``solve_many`` golden of ``tests/golden_vc.json`` and
+   ``golden_smoke.json`` (n = 300, 64 workers), ``clique_smoke``'s max
+   clique batch, and max clique and MIS as the JAX package's
+   ``test_explore_fused.py`` holds them, each through
+   ``SolveConfig(explore_impl="reference")`` and the fused route: equal to
+   the golden and to each other field for field (``reduce_sweeps`` too
+   where one lane pops a worker's rows), the reference route launching
+   ``batched_degrees`` (vertex cover) or ``batched_expand_stats`` (max
+   clique, MIS) and no fused kernel, the fused route one fused launch an
+   explore round; the panels' launches an explore round and both routes'
+   walls and nodes/s printed; (b) G(300, 4/299, seed 0) at 64 workers for
+   2 supersteps, ``snapshot`` -> ``restore`` -> ``resize`` to 48 and to 128
+   workers: each resized solve reaches the golden optimum 157 and verifies,
+   one ``vc_expand`` per explore round; (c) the deprecated
+   ``engine.solve``/``solve_many`` equal their session results, each with
+   its ``DeprecationWarning``; (d) the benchmark mirrors
+   ``repro_torch.bench``: the namesake's smoke set, ``resume_smoke`` (real
+   SIGKILLs of child processes on the card) and ``engine_throughput``, held
+   by ``check_regression`` to every benchmark and exact pin of
+   ``benchmarks/baseline.json``, each mirror's ratios printed beside the
+   namesake's bar (recorded, not gated), and ``kernel_bench``'s kernel times
+   at the namesake's roofline shapes.  The kernels line gives (a)'s panel
+   launches as ``reference_launches`` and (b)'s as ``elastic_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -2209,6 +2234,344 @@ def phase_protocol(dev) -> dict:
 
 
 
+# -- phase 16: the reference explore path, elasticity, legacy shims, mirrors ----
+
+# the elastic solve: golden_smoke.json's graph and workers, snapshotted after
+# a few supersteps and resized to fewer and to more workers
+ELASTIC_SUPERSTEPS = 2
+ELASTIC_WORKERS = (48, 128)
+# the mirrors phase 16 runs on the card: the namesake's smoke set (every
+# benchmark of benchmarks/baseline.json), the SIGKILL cycles, the engine A/B
+# and the kernels' times at the namesake's roofline shapes
+PHASE16_MIRRORS = ("resume_smoke", "engine_throughput")
+
+
+def _vc_cases() -> list:
+    """(label, graph, SolveConfig fields, JAX record) of every solo and FPT
+    golden of tests/golden_vc.json and golden_smoke.json (n = 300)."""
+    golden = json.loads((ROOT / "tests" / "golden_vc.json").read_text())
+    smoke = json.loads((DATA / "golden_smoke.json").read_text())
+    cases = []
+    for label, c in golden["solo"].items():
+        kw = dict(c["solve_kw"])
+        if "policy_priority" in kw:
+            kw["policy"] = "priority" if kw.pop("policy_priority") else "random"
+        cases.append((label, c["graph"], kw, c["result"]))
+    f = golden["fpt"]
+    cases.append(("fpt", f["graph"], dict(num_workers=4, mode="fpt", k=f["k"]), f["result"]))
+    cases.append(("smoke_n300", smoke["graph"], smoke["solve_kw"], smoke["result"]))
+    return cases
+
+
+def _both_routes(label: str, solve, explore_rounds, fused_kernel: str, panel: str) -> tuple:
+    """Run ``solve(impl)`` on both explore routes: the fused one launches
+    one ``fused_kernel`` per explore round and no panel kernel, the reference
+    one launches ``panel`` and no fused kernel.  Returns (reference result,
+    fused result, reference launches, reference wall, fused wall)."""
+    from repro_torch.kernels import counts
+
+    out = {}
+    for impl in ("fused", "reference"):
+        counts.reset()
+        t = time.perf_counter()
+        r = solve(impl)
+        out[impl] = (r, counts.snapshot(), time.perf_counter() - t)
+    (ref, ref_l, ref_wall), (fused, fused_l, fused_wall) = out["reference"], out["fused"]
+    check(ref_l.get(panel, 0) > 0 and set(ref_l) <= {"batched_degrees", "batched_expand_stats"},
+          f"reference {label}: launched {ref_l}, want {panel} and no fused kernel")
+    want = explore_rounds(fused)
+    check(fused_l == {fused_kernel: want} if want is not None else set(fused_l) == {fused_kernel},
+          f"fused {label}: launched {fused_l}, want {want} {fused_kernel} only")
+    return ref, fused, ref_l, ref_wall, fused_wall
+
+
+def _reference_vc(dev) -> dict:
+    """(a) Vertex cover: every golden through both routes."""
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.graphs.generators import erdos_renyi
+
+    panels = {}
+    for label, graph, kw, want in _vc_cases():
+        g = erdos_renyi(graph["n"], graph["p"], graph["seed"])
+        cfg = SolveConfig(**kw)
+
+        def solve(impl):
+            return SolverSession(config=cfg.replace(explore_impl=impl), device=dev).solve(g)
+
+        ref, fused, launches, ref_wall, fused_wall = _both_routes(
+            label, solve, lambda r: r.rounds * cfg.steps_per_round, "vc_expand", "batched_degrees")
+        check(record(ref) == want == record(fused),
+              f"reference golden {label}: {record(ref)} / fused {record(fused)} != {want}")
+        if cfg.lanes == 1:  # more lanes pop other stale rows for invalid lanes
+            check(ref.stats.reduce_sweeps == fused.stats.reduce_sweeps,
+                  f"reference golden {label}: reduce_sweeps {ref.stats.reduce_sweeps} != "
+                  f"fused {fused.stats.reduce_sweeps}")
+        rounds = ref.rounds * cfg.steps_per_round
+        for k, v in launches.items():
+            panels[k] = panels.get(k, 0) + v
+        print(f"[smoke] reference golden {label}: n={g.n} best={ref.best_size} "
+              f"rounds={ref.rounds} nodes={ref.nodes_expanded} == JAX golden == fused; "
+              f"reduce_sweeps {ref.stats.reduce_sweeps} (fused {fused.stats.reduce_sweeps}); "
+              f"launches={launches} ({launches.get('batched_degrees', 0) / rounds:.2f} "
+              f"batched_degrees per explore round); wall {ref_wall:.3f} s, "
+              f"{ref.nodes_expanded / ref_wall:.1f} nodes/s against fused {fused_wall:.3f} s, "
+              f"{fused.nodes_expanded / fused_wall:.1f} nodes/s ({ref_wall / fused_wall:.2f}x)")
+    golden = json.loads((ROOT / "tests" / "golden_vc.json").read_text())["many"]
+    graphs = [erdos_renyi(n, golden["p"], golden["seed0"] + i)
+              for i, n in enumerate(golden["sizes"])]
+    kw = dict(golden["solve_kw"])
+    batches = {}
+
+    def solve_many(impl):
+        batches[impl] = SolverSession(config=SolveConfig(**kw, explore_impl=impl),
+                                      device=dev).solve_many(graphs)
+        return batches[impl]
+
+    _, _, launches, _, _ = _both_routes("solve_many golden", solve_many, lambda b: None,
+                                        "vc_expand", "batched_degrees")
+    for impl, b in batches.items():
+        check([record(r) for r in b.results] == golden["results"]
+              and b.compactions == golden["compactions"],
+              f"{impl} solve_many golden differs from the JAX record")
+    for k, v in launches.items():
+        panels[k] = panels.get(k, 0) + v
+    print(f"[smoke] reference solve_many golden: {len(graphs)} instances == JAX golden == "
+          f"fused, {golden['compactions']} compactions; launches={launches}")
+    return panels
+
+
+def _reference_clique(dev) -> dict:
+    """(a) Max clique on clique_smoke's batch and MIS as the JAX package's
+    test_explore_fused.py holds them: the reference route equals the fused
+    one field for field, on batched_expand_stats."""
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.graphs.generators import erdos_renyi
+
+    panels = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            panels[k] = panels.get(k, 0) + v
+
+    graphs = [erdos_renyi(20, 0.4, seed) for seed in range(4)]
+    batches = {}
+
+    def clique_batch(impl):
+        batches[impl] = SolverSession(problem="max_clique", config=SolveConfig(
+            num_workers=4, steps_per_round=8, explore_impl=impl), device=dev).solve_many(graphs)
+        return batches[impl]
+
+    _, _, launches, ref_wall, fused_wall = _both_routes(
+        "clique_smoke", clique_batch, lambda b: None, "clique_expand", "batched_expand_stats")
+    add(launches)
+    sizes = [r.best_size for r in batches["reference"].results]
+    check(sizes == [4, 6, 4, 4] and [_full(r) for r in batches["reference"].results]
+          == [_full(r) for r in batches["fused"].results],
+          f"reference clique_smoke {sizes} differs from the fused route or [4, 6, 4, 4]")
+    print(f"[smoke] reference clique_smoke: sizes {sizes} == fused; launches={launches}; "
+          f"wall {ref_wall:.3f} s against fused {fused_wall:.3f} s")
+    cases = [(erdos_renyi(16, 0.4, s), dict(num_workers=4, steps_per_round=8)) for s in (0, 1, 2)]
+    cases.append((erdos_renyi(16, 0.45, 11), dict(num_workers=4, mode="fpt", k=3)))
+    for problem in ("max_clique", "mis"):
+        for g, kw in cases:
+            cfg = SolveConfig(**kw)
+
+            def solve(impl):
+                return SolverSession(problem=problem, config=cfg.replace(explore_impl=impl),
+                                     device=dev).solve(g)
+
+            ref, fused, launches, _, _ = _both_routes(
+                f"{problem} {kw}", solve, lambda r: r.rounds * cfg.steps_per_round,
+                "clique_expand", "batched_expand_stats")
+            check(_full(ref) == _full(fused), f"reference {problem} {kw}: {_full(ref)} != "
+                                              f"fused {_full(fused)}")
+            add(launches)
+            rounds = ref.rounds * cfg.steps_per_round
+            print(f"[smoke] reference {problem} G({g.n}) {kw}: best={ref.best_size} "
+                  f"rounds={ref.rounds} nodes={ref.nodes_expanded} == fused; launches={launches} "
+                  f"({launches.get('batched_expand_stats', 0) / rounds:.2f} per explore round)")
+    return panels
+
+
+def _full(r) -> dict:
+    """A result's every deterministic field (no solution when none found)."""
+    rec = record(r) if r.best_sol is not None else {"best_size": int(r.best_size)}
+    return {**rec, "rounds": int(r.rounds), "nodes_expanded": int(r.nodes_expanded),
+            "overflow_count": int(r.stats.overflow_count),
+            "reduce_sweeps": r.stats.reduce_sweeps}
+
+
+def _elastic(dev) -> int:
+    """(b) G(300, 4/299, seed 0) at 64 workers for a few supersteps, then
+    snapshot -> restore -> resize to fewer and more workers: each resized
+    solve reaches the golden optimum and verifies, one vc_expand per
+    explore round.  Returns its vc_expand launches."""
+    from repro_torch.api import PlaneCache, SolveConfig
+    from repro_torch.api.backends import solve_spmd
+    from repro_torch.core import engine as E
+    from repro_torch.core import superstep as S
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import counts
+    from repro_torch.problems.base import make_data
+    from repro_torch.problems.registry import get_problem
+    from repro_torch.problems.sequential import verify_cover
+
+    smoke = json.loads((DATA / "golden_smoke.json").read_text())
+    g = erdos_renyi(**smoke["graph"])
+    cfg = SolveConfig(**smoke["solve_kw"])
+    spec = get_problem("vertex_cover")
+    state = E.make_instance_state(spec, g, cfg.num_workers, 4 * g.n + 8 * cfg.lanes, g.W,
+                                  g.n + 1, dev)
+    data = make_data(spec, g, dev)
+    for _ in range(ELASTIC_SUPERSTEPS):
+        state, _ = S.superstep(spec, data, state, steps_per_round=cfg.steps_per_round,
+                               lanes=cfg.lanes)
+    snap = E.snapshot(state)
+    pending = int(snap["frontier"].active.sum())
+    restored = E.restore(snap, dev)
+    again = E.snapshot(restored)
+    check(again.keys() == snap.keys()
+          and all((a == b).all() for a, b in zip(again["frontier"], snap["frontier"]))
+          and all((again[k] == snap[k]).all() for k in snap if k != "frontier"),
+          "elastic: the restored state differs from its snapshot")
+    total = 0
+    cache = PlaneCache()
+    for workers in ELASTIC_WORKERS:
+        resized = E.resize(restored, workers)
+        check(int(resized.frontier.active.sum()) == pending,
+              f"elastic: resize to {workers} kept {int(resized.frontier.active.sum())} of "
+              f"{pending} tasks")
+        counts.reset()
+        t = time.perf_counter()
+        r = solve_spmd(spec, g, cfg.replace(num_workers=workers), cache, device=dev,
+                       initial_state=resized)
+        wall = time.perf_counter() - t
+        launches = counts.snapshot()
+        check(r.best_size == smoke["result"]["best_size"] and verify_cover(g, r.best_sol),
+              f"elastic: resized to {workers} workers gives {r.best_size}, want "
+              f"{smoke['result']['best_size']}")
+        _per_round(f"elastic resize to {workers}", launches, "vc_expand",
+                   cfg.steps_per_round, r.rounds)
+        total += launches.get("vc_expand", 0)
+        print(f"[smoke] elastic: {ELASTIC_SUPERSTEPS} supersteps at {cfg.num_workers} workers, "
+              f"snapshot ({pending} pending) -> restore -> resize to {workers}: best "
+              f"{r.best_size} (golden {smoke['result']['best_size']}), verified, {r.rounds} "
+              f"supersteps, {r.nodes_expanded} nodes, {wall:.3f} s; launches={launches}")
+    return total
+
+
+def _legacy(dev) -> None:
+    """(c) The deprecated engine.solve / solve_many equal their session
+    results, each with its DeprecationWarning."""
+    import warnings
+
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.core import engine as E
+    from repro_torch.graphs.generators import erdos_renyi
+
+    g = erdos_renyi(40, 0.28, 0)
+    gs = [erdos_renyi(n, 0.3, s) for s, n in enumerate((18, 24, 30))]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        solo = E.solve(g, num_workers=8, steps_per_round=8, device=dev)
+        many = E.solve_many(gs, num_workers=4, steps_per_round=8, device=dev)
+    deprecations = [str(w.message) for w in caught if w.category is DeprecationWarning]
+    check(len(deprecations) == 2 and all("SolverSession" in m for m in deprecations),
+          f"legacy shims warned {deprecations}")
+    def legacy_record(r) -> dict:  # an EngineResult's fields of record()
+        return {**{k: getattr(r, k) for k in ("best_size", "rounds", "nodes_expanded",
+                                              "tasks_transferred", "transfer_rounds",
+                                              "transfer_bytes_total", "overflow")},
+                "best_sol": [int(w) for w in r.best_sol]}
+
+    want = SolverSession(config=SolveConfig(num_workers=8, steps_per_round=8), device=dev).solve(g)
+    check(legacy_record(solo) == record(want), "legacy engine.solve differs from its session solve")
+    want_many = SolverSession(config=SolveConfig(num_workers=4, steps_per_round=8),
+                              device=dev).solve_many(gs)
+    check([legacy_record(r) for r in many.results] == [record(r) for r in want_many.results],
+          "legacy engine.solve_many differs from its session solve_many")
+    print(f"[smoke] legacy shims: engine.solve best={solo.best_size} and engine.solve_many "
+          f"{[r.best_size for r in many.results]} == the session's, each with its "
+          f"DeprecationWarning")
+
+
+def _mirrors(dev) -> dict:
+    """(d) The benchmark mirrors on the card: the namesake's smoke set and
+    the SIGKILL cycles, gated by check_regression against
+    benchmarks/baseline.json; the engine A/B; the kernels at the namesake's
+    roofline shapes.  Returns the panel kernels' launches (the explore A/B's
+    reference route)."""
+    from repro_torch.bench import check_regression, kernel_bench
+    from repro_torch.bench.run import OUT, SMOKE_DEFAULT, run_all
+    from repro_torch.kernels import counts
+
+    counts.reset()
+    recorded = run_all(list(SMOKE_DEFAULT) + list(PHASE16_MIRRORS), smoke=True, device=dev)
+    launches = counts.snapshot()
+    run = {"smoke": True, "device": str(dev), "benchmarks": recorded}
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    OUT.write_text(json.dumps(run, indent=2) + "\n")
+    problems = check_regression.check(json.loads(check_regression.BASELINE.read_text()), run)
+    check(problems == [], f"check_regression on the card: {problems}")
+    check(launches.get("batched_expand_stats", 0) > 0 and launches.get("batched_degrees", 0) > 0,
+          f"the mirrors' reference route launched {launches}")
+    e = recorded["explore_throughput"]
+    print(f"[smoke] mirrors on the card ({nvidia_smi()}): check_regression green over "
+          f"{sorted(recorded)}; launches={launches}")
+    for problem, row in e["shapes"].items():
+        print(f"[smoke]   explore_throughput {problem}: reference {row['reference_nodes_per_s']} "
+              f"nodes/s, fused {row['fused_nodes_per_s']} nodes/s, {row['fused_speedup']}x "
+              f"(the namesake's bar {e['min_fused_speedup']}x, recorded)")
+    b = recorded["batch_throughput"]
+    print(f"[smoke]   batch_throughput B={[r['B'] for r in b['rows']]}: speedup "
+          f"{[r['speedup'] for r in b['rows']]} (bar {b['min_speedup_b16']}x at 16, recorded)")
+    w = recorded["session_warm"]
+    print(f"[smoke]   session_warm: cold {w['cold_s']} s, warm {w['warm_s']} s, "
+          f"{w['warm_speedup']}x (bar {w['min_warm_speedup']}x, recorded); plane_traces "
+          f"{w['plane_traces']}")
+    s = recorded["serve_load"]
+    print(f"[smoke]   serve_load: continuous {s['continuous_inst_per_s']} inst/s, fixed "
+          f"{s['fixed_inst_per_s']} inst/s, {s['continuous_speedup']}x (bar "
+          f"{s['min_continuous_speedup']}x, recorded), occupancy {s['occupancy']}; Poisson at "
+          f"{s['poisson_rate_per_s']} req/s: p50 {s['latency_p50_ms']} ms, p99 "
+          f"{s['latency_p99_ms']} ms")
+    sp, ch = recorded["spill_throughput"], recorded["chaos_smoke"]
+    print(f"[smoke]   spill_throughput: {sp['spilled_tasks']} spilled, {sp['readmitted_tasks']} "
+          f"readmitted, wall ratio {sp['wall_ratio']} (bar {sp['max_wall_ratio']}, recorded); "
+          f"chaos_smoke: {ch['faults_injected']}/{ch['faults_recovered']}/{ch['retries']}/"
+          f"{ch['lanes_quarantined']}, wall ratio {ch['wall_ratio']} (bar {ch['max_wall_ratio']}, "
+          f"recorded)")
+    rs = recorded["resume_smoke"]
+    print(f"[smoke]   resume_smoke: SIGKILL at step {rs['killed_at_step']} "
+          f"(mid-solve {rs['killed_mid_solve']}), recovery killed at "
+          f"{rs['recovery_second_kill_step']} (mid-recovery {rs['killed_mid_recovery']}), "
+          f"mid-spill at {rs['spill_killed_at_step']}: every resume bit-identical; checkpoint "
+          f"{rs['checkpoint_bytes']} B, overhead {rs['checkpoint_overhead_pct']}%, resume "
+          f"{rs['resume_wall_s']} s")
+    for row in recorded["engine_throughput"]["chunked"]:
+        print(f"[smoke]   engine_throughput {row['mode']}: {row['host_steps_per_s']} supersteps/s "
+              f"at chunk_rounds=1, {row['device_steps_per_s']} at {row['chunk_rounds']} "
+              f"({row['speedup']}x)")
+    for row in kernel_bench.run(csv=False, device=dev):
+        print(f"[smoke]   kernel_bench {row['kernel']} {row['shape']}: {row['ms']} ms, "
+              f"intensity {row['intensity']}")
+    return launches
+
+
+def phase_reference(dev) -> dict:
+    """Phase 16: (a) the reference explore path, (b) elasticity, (c) the
+    legacy shims, (d) the benchmark mirrors.  Returns the launches of (a)'s
+    panel kernels and (b)'s vc_expand."""
+    panels = _reference_vc(dev)
+    for k, v in _reference_clique(dev).items():
+        panels[k] = panels.get(k, 0) + v
+    print(f"[smoke] reference explore path: panel launches {panels}, no fused kernel")
+    elastic = _elastic(dev)
+    _legacy(dev)
+    _mirrors(dev)
+    return {"panels": panels, "vc_expand": elastic}
+
+
 # -- the LM serving path (phases 8-10) ------------------------------------------
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the
@@ -2841,6 +3204,17 @@ def main() -> None:
     kernels["clique_expand"]["protocol_path"] = "the clique_smoke mirror, phase 15"
     for name in ("vc_expand", "clique_expand"):
         check(kernels[name]["protocol_launches"] > 0, f"phase 15 launched no {name}")
+    # and the reference explore path gives the panel kernels a solve path
+    reference = timed("reference", phase_reference, dev)
+    for name in ("batched_degrees", "batched_expand_stats"):
+        kernels[name]["reference_launches"] = reference["panels"].get(name, 0)
+        kernels[name]["reference_path"] = (
+            "explore_impl='reference' solves: the golden_vc.json and golden_smoke.json goldens, "
+            "clique_smoke, max clique and MIS, phase 16")
+        check(kernels[name]["reference_launches"] > 0, f"phase 16 launched no {name}")
+    kernels["vc_expand"]["elastic_launches"] = reference["vc_expand"]
+    kernels["vc_expand"]["elastic_path"] = (
+        "solves from resized snapshots of G(300, 4/299, 0), phase 16")
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

@@ -771,6 +771,13 @@ def get_backend(name) -> Backend:
     return BACKENDS[key]
 
 
+# -- legacy engine shim plumbing -----------------------------------------------
+
+#: one process-wide cache for the deprecated ``engine.solve``/``solve_many``
+#: shims: legacy callers pool their planes too
+LEGACY_CACHE = PlaneCache()
+
+
 def config_from_legacy(policy_priority: bool = True, **kw) -> SolveConfig:
     """Map the legacy kwargs surface (the ``policy_priority`` bool of the
     goldens' ``solve_kw``) onto :class:`SolveConfig`."""

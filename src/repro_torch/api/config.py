@@ -42,7 +42,7 @@ class SolveConfig:
     transfer_impl: str = "sparse"
     # exploration hot path: "fused" = one-pass batched expand_tasks + cheap
     # depth-major frontier pop (bit-identical, faster); "reference" = the
-    # per-task callables + full-capacity top_k kept for A/B and goldens.
+    # per-task callables + the full-capacity sorted pop, kept for A/B.
     explore_impl: str = "fused"
     donate_k: int = 1
     chunk_rounds: int = 16

@@ -101,6 +101,9 @@ from repro_torch.problems import base as problems_base
 from repro_torch.problems.base import WorkCounters
 from repro_torch.problems.registry import get_problem
 
+# counters of the port's service that the JAX package's has not
+PORT_ONLY_STATS = ("supersteps",)
+
 
 class SolveTimeout(TimeoutError):
     """A request exceeded ``SolveConfig.request_timeout_s`` on the
@@ -517,8 +520,9 @@ class SolveService:
         with the answers of the uninterrupted service: lane state is exact,
         admission is a pure function of the restored queue and occupancy,
         and superstep deadlines ride in the restored per-lane ``rounds``.
-        Each plane's running ``reduce_sweeps`` (the port's own counter)
-        rides in its meta."""
+        Each plane's running ``reduce_sweeps`` and the service's
+        ``supersteps`` (the port's own counters) ride in meta keys that the
+        JAX package does not read."""
         directory = directory or self.config.checkpoint_dir
         if directory is None:
             raise ValueError(
@@ -568,7 +572,12 @@ class SolveService:
                     str(t): r.to_dict() for t, r in self._results.items()
                 },
                 "next_ticket": self._next_ticket,
-                "stats": dict(self._stats),
+                # the JAX package's restore merges "stats" into its own
+                # counters, so it gets exactly JAX's keys; the port's own
+                # counters ride apart, where only the port reads them
+                "stats": {k: v for k, v in self._stats.items()
+                          if k not in PORT_ONLY_STATS},
+                "port_stats": {k: self._stats[k] for k in PORT_ONLY_STATS},
             }
         )
         retry, fault_hook = _io_policy(self.injector)
@@ -641,6 +650,7 @@ class SolveService:
         }
         svc._next_ticket = int(meta["next_ticket"])
         svc._stats.update(meta["stats"])
+        svc._stats.update(meta.get("port_stats", {}))
         return svc
 
     # -- internals -------------------------------------------------------------

@@ -1,24 +1,33 @@
-"""Run the port's benchmark mirrors and check the exact pins of the baseline.
+"""Run the port's benchmark mirrors and gate a smoke run on the baseline.
 
-  protocol_stats   §3 message accounting (failed requests == 0)
-  encoding_bytes   §4.3 serialization sizes
-  speedup          Fig. 4 / Table 1 (semi vs central x encodings); its
-                   donation rows run the SPMD engine on ``--device``
-  balancer_bench   beyond-paper serving balancer
-  clique_smoke     max clique on the batched plane vs the sequential reference
+  protocol_stats     §3 message accounting (failed requests == 0)
+  encoding_bytes     §4.3 serialization sizes
+  engine_throughput  engine rounds/transfers budget, chunked A/B, transfer A/B
+  batch_throughput   multi-instance solve plane vs a loop of solo solves
+  clique_smoke       max clique on the batched plane vs the sequential reference
+  session_warm       cold vs warm session solves (the plane cache)
+  explore_throughput fused vs reference explore path, nodes/s
+  serve_load         continuous-admission service vs fixed batching
+  spill_throughput   frontier spill: no drop, the unsaturated optimum
+  chaos_smoke        seeded fault schedule: bit-identical self-healing
+  resume_smoke       SIGKILL mid-solve and a bit-identical resume
+  balancer_bench     beyond-paper serving balancer
+  kernel_bench       each kernel's arithmetic intensity (and time on the card)
+  speedup            Fig. 4 / Table 1 (semi vs central x encodings)
+
+Each runs its ``benchmarks/`` namesake's work on the port, on ``--device``
+(the card unless ``--device cpu`` asks for the CPU; the simulators run on
+the host either way).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.bench.run [--smoke] [--device DEV] [name ...]
 
-``--smoke`` runs the shrunken sizes of ``benchmarks/run.py --smoke`` (by
-default its mirrored benchmarks, ``encoding_bytes`` and ``clique_smoke``) and
-then holds every dict a benchmark returns to the exact (``eq``) pins that
-``benchmarks/baseline.json`` sets for it: encoded record bytes and the clique
-sizes.  Its floors and ceilings are wall-clock readings of the JAX package on
-a CPU and are not applied here.  The baseline is read, never written.  The
-returned dicts go to ``build/repro_torch_bench/BENCH.json``.  The device is
-the card unless ``--device cpu`` asks for the CPU; the simulators run on the
-host either way.
+``--smoke`` runs the shrunken sizes, by default the namesake's smoke set
+(``SMOKE_DEFAULT``), and then gates the run with
+:mod:`repro_torch.bench.check_regression`: every benchmark of
+``benchmarks/baseline.json`` present and each exact pin met (with names
+given, only those benchmarks' pins).  The returned dicts go to
+``build/repro_torch_bench/BENCH.json``.
 """
 
 from __future__ import annotations
@@ -28,53 +37,56 @@ import inspect
 import json
 import sys
 import time
-from pathlib import Path
 
 from repro_torch.bench import (
     balancer_bench,
+    batch_throughput,
+    chaos_smoke,
+    check_regression,
     clique_smoke,
     encoding_bytes,
+    engine_throughput,
+    explore_throughput,
+    kernel_bench,
     protocol_stats,
+    resume_smoke,
+    serve_load,
+    session_warm,
     speedup,
+    spill_throughput,
 )
 
 ALL = {
-    "protocol_stats": protocol_stats,
     "encoding_bytes": encoding_bytes,
-    "speedup": speedup,
-    "balancer_bench": balancer_bench,
+    "protocol_stats": protocol_stats,
+    "engine_throughput": engine_throughput,
+    "batch_throughput": batch_throughput,
     "clique_smoke": clique_smoke,
+    "session_warm": session_warm,
+    "explore_throughput": explore_throughput,
+    "serve_load": serve_load,
+    "spill_throughput": spill_throughput,
+    "chaos_smoke": chaos_smoke,
+    "resume_smoke": resume_smoke,
+    "balancer_bench": balancer_bench,
+    "kernel_bench": kernel_bench,
+    "speedup": speedup,
 }
-SMOKE_DEFAULT = ("encoding_bytes", "clique_smoke")
+# the namesake's smoke set (benchmarks/run.py)
+SMOKE_DEFAULT = (
+    "encoding_bytes", "batch_throughput", "clique_smoke", "session_warm",
+    "explore_throughput", "serve_load", "spill_throughput", "chaos_smoke",
+)
 
-ROOT = Path(__file__).resolve().parents[3]
-BASELINE = ROOT / "benchmarks" / "baseline.json"
-OUT = ROOT / "build" / "repro_torch_bench" / "BENCH.json"
-
-
-def _lookup(entry, path: str):
-    cur = entry
-    for part in path.split("."):
-        cur = cur[int(part)] if isinstance(cur, list) else cur[part]
-    return cur
+BASELINE = check_regression.BASELINE
+OUT = check_regression.BENCH
 
 
 def check_pins(baseline: dict, recorded: dict) -> list:
-    """Violations of the baseline's exact pins by the benchmarks that ran
-    (empty: all pins met)."""
-    problems = []
-    for name, entry in recorded.items():
-        for rule in baseline["benchmarks"].get(name, {}).get("checks", []):
-            if "eq" not in rule:
-                continue
-            try:
-                got = _lookup(entry, rule["path"])
-            except (KeyError, IndexError, ValueError):
-                problems.append(f"{name}.{rule['path']}: missing from the run")
-                continue
-            if got != rule["eq"]:
-                problems.append(f"{name}.{rule['path']}: {got!r} != pinned {rule['eq']!r}")
-    return problems
+    """Violations of the baseline's rules by the benchmarks that ran (empty:
+    all met): :func:`check_regression.check` over those benchmarks only."""
+    ran = {k: v for k, v in baseline["benchmarks"].items() if k in recorded}
+    return check_regression.check({"benchmarks": ran}, {"benchmarks": recorded})
 
 
 def run_all(names, *, smoke: bool = False, device="cuda") -> dict:
@@ -117,12 +129,14 @@ def main(argv=None) -> None:
         raise SystemExit(2)
 
     recorded = run_all(names, smoke=args.smoke, device=args.device)
+    run = {"smoke": args.smoke, "device": args.device, "benchmarks": recorded}
     OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text(json.dumps({"smoke": args.smoke, "device": args.device,
-                               "benchmarks": recorded}, indent=2) + "\n")
+    OUT.write_text(json.dumps(run, indent=2) + "\n")
     print(f"wrote {OUT} ({', '.join(recorded) or 'no dict results'})")
     if args.smoke:
-        problems = check_pins(json.loads(BASELINE.read_text()), recorded)
+        baseline = json.loads(BASELINE.read_text())
+        problems = (check_pins(baseline, recorded) if args.names
+                    else check_regression.check(baseline, run))
         if problems:
             print(f"PINS VIOLATED: {len(problems)}")
             for p in problems:

@@ -11,19 +11,32 @@ The port of the helpers of ``repro/core/engine.py``:
 * **buckets**: ``solve_many`` groups instances by packed width W;
 * **collect**: one host fetch; the best solution is the one of the worker
   with the least local best (the center "fetches it only when the
-  exploration has finished", §3.1), per lane of a batch.
+  exploration has finished", §3.1), per lane of a batch;
+* **elasticity**: :func:`snapshot`/:func:`restore` move a worker state
+  through host numpy in the JAX package's layout (either package's snapshot
+  restores in the other), and :func:`resize` re-splits every pending task
+  over another worker count;
+* **legacy shims**: the deprecated :func:`solve`/:func:`solve_many` keyword
+  surface over the session's solve loops.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.superstep import WorkerState, worker_state_from_flat
+from repro_torch.core.frontier import Frontier
+from repro_torch.core.superstep import (
+    WorkerState,
+    worker_state_from_flat,
+    worker_state_to_flat,
+)
 from repro_torch.core.waiting_list import startup_assignment
 from repro_torch.problems import base as problems_base
+from repro_torch.problems.registry import DEFAULT_PROBLEM, get_problem
 
 
 @dataclasses.dataclass
@@ -247,3 +260,206 @@ def _pow2_at_least(x: int) -> int:
     while p < x:
         p *= 2
     return p
+
+
+# -- the deprecated keyword surface ----------------------------------------------
+
+# JAX's warning text, with the port's package name
+_DEPRECATED = (
+    "engine.{verb} is deprecated and will be REMOVED in v1.0; use "
+    "repro_torch.api.SolverSession(...).{verb} (see the README migration "
+    "table: 'Migrating from the legacy engine API')"
+)
+
+
+def solve(
+    g,
+    num_workers: int = 8,
+    *,
+    problem=DEFAULT_PROBLEM,
+    steps_per_round: int = 32,
+    lanes: int = 1,
+    policy_priority: bool = True,
+    codec: str = "optimized",
+    packed_status: bool = True,
+    skip_empty_transfer: bool = True,
+    transfer_impl: str = "sparse",
+    explore_impl: str = "fused",
+    donate_k: int = 1,
+    chunk_rounds: int = 16,
+    mode: str = "bnb",
+    k: Optional[int] = None,
+    mesh=None,
+    max_rounds: int = 200_000,
+    capacity: Optional[int] = None,
+    initial_state: Optional[WorkerState] = None,
+    compact_threshold: float = 0.25,
+    device=None,
+) -> EngineResult:
+    """DEPRECATED shim over the session's solve loop: one instance of
+    ``problem`` with P workers on ``device`` (None: the card).
+
+    Prefer ``SolverSession(problem=..., config=SolveConfig(...),
+    device=...).solve(g)``.  The JAX package's legacy keywords map onto a
+    :class:`~repro_torch.api.SolveConfig` (``compact_threshold`` is accepted
+    and inert, as there), every call shares the process-wide
+    ``LEGACY_CACHE``, and the legacy :class:`EngineResult` comes back.  A
+    ``mesh`` is refused with ``NotImplementedError`` (ROADMAP queue 1, item
+    13)."""
+    warnings.warn(_DEPRECATED.format(verb="solve"), DeprecationWarning, stacklevel=2)
+    from repro_torch.api import backends as _api
+    from repro_torch.api.session import resolve_device
+
+    cfg = _api.config_from_legacy(
+        policy_priority=policy_priority,
+        num_workers=num_workers,
+        steps_per_round=steps_per_round,
+        lanes=lanes,
+        codec=codec,
+        packed_status=packed_status,
+        skip_empty_transfer=skip_empty_transfer,
+        transfer_impl=transfer_impl,
+        explore_impl=explore_impl,
+        donate_k=donate_k,
+        chunk_rounds=chunk_rounds,
+        mode=mode,
+        k=k,
+        max_rounds=max_rounds,
+        capacity=capacity,
+        compact_threshold=compact_threshold,
+    )
+    return _api.solve_spmd(
+        get_problem(problem), g, cfg, _api.LEGACY_CACHE,
+        device=resolve_device(device), initial_state=initial_state, mesh=mesh,
+    )
+
+
+def solve_many(
+    graphs,
+    num_workers: int = 8,
+    *,
+    problem=DEFAULT_PROBLEM,
+    steps_per_round: int = 32,
+    lanes: int = 1,
+    policy_priority: bool = True,
+    codec: str = "optimized",
+    packed_status: bool = True,
+    skip_empty_transfer: bool = True,
+    transfer_impl: str = "sparse",
+    explore_impl: str = "fused",
+    donate_k: int = 1,
+    chunk_rounds: int = 16,
+    mode: str = "bnb",
+    k=None,
+    mesh=None,
+    max_rounds: int = 200_000,
+    capacity: Optional[int] = None,
+    compact_threshold: float = 0.25,
+    device=None,
+) -> BatchResult:
+    """DEPRECATED shim over the session's batched solve loop: B instances of
+    ``problem`` on one plane on ``device`` (None: the card).
+
+    Prefer ``SolverSession(...).solve_many(graphs)``.  ``k`` may be one int
+    or one per instance; ``mesh`` must stay None (the batched plane has no
+    mesh path, in either package: ``ValueError``).  Returns the legacy
+    :class:`BatchResult`."""
+    warnings.warn(_DEPRECATED.format(verb="solve_many"), DeprecationWarning,
+                  stacklevel=2)
+    if mesh is not None:
+        raise ValueError(
+            "solve_many has no mesh path yet (vmap virtual workers only); "
+            "pass mesh=None"
+        )
+    from repro_torch.api import backends as _api
+    from repro_torch.api.session import resolve_device
+
+    cfg = _api.config_from_legacy(
+        policy_priority=policy_priority,
+        num_workers=num_workers,
+        steps_per_round=steps_per_round,
+        lanes=lanes,
+        codec=codec,
+        packed_status=packed_status,
+        skip_empty_transfer=skip_empty_transfer,
+        transfer_impl=transfer_impl,
+        explore_impl=explore_impl,
+        donate_k=donate_k,
+        chunk_rounds=chunk_rounds,
+        mode=mode,
+        k=(tuple(k) if hasattr(k, "__len__") else k),
+        max_rounds=max_rounds,
+        capacity=capacity,
+        compact_threshold=compact_threshold,
+    )
+    return _api.solve_many_spmd(get_problem(problem), graphs, cfg,
+                                _api.LEGACY_CACHE, device=resolve_device(device))
+
+
+# -- elasticity -------------------------------------------------------------------
+#
+# A snapshot is the JAX package's: ``WorkerState._asdict()`` with every leaf a
+# host numpy array and ``frontier`` a Frontier of numpy arrays (the JAX
+# snapshot's is its own Frontier class; either restores here, and so does a
+# plain dict), packed words uint32.
+
+_SNAP = "snapshot"
+
+
+def _host_leaves(state: WorkerState) -> dict:
+    """Every leaf of ``state`` as a host array, by its flat name
+    (``frontier.masks``, ``best_val``, ...)."""
+    flat = worker_state_to_flat(state, _SNAP)
+    return {k[len(_SNAP) + 1:]: v for k, v in flat.items()}
+
+
+def snapshot(state: WorkerState) -> dict:
+    """Host-side copy of the whole engine state, in the JAX layout."""
+    host = _host_leaves(state)
+    snap = {k: host[k] for k in WorkerState._fields if k != "frontier"}
+    snap["frontier"] = Frontier(*(host[f"frontier.{k}"] for k in Frontier._fields))
+    return snap
+
+
+def restore(snap: dict, device=None) -> WorkerState:
+    """A :func:`snapshot` of either package back on ``device`` (None: the
+    card)."""
+    from repro_torch.api.session import resolve_device
+
+    fr = snap["frontier"]
+    fr = fr if isinstance(fr, dict) else fr._asdict()
+    flat = {f"{_SNAP}.frontier.{k}": np.asarray(v) for k, v in fr.items()}
+    flat.update({f"{_SNAP}.{k}": np.asarray(v) for k, v in snap.items() if k != "frontier"})
+    return worker_state_from_flat(flat, resolve_device(device), _SNAP)
+
+
+def resize(state: WorkerState, new_num_workers: int) -> WorkerState:
+    """Re-split every pending task over ``new_num_workers`` workers (elastic
+    scale-up or -down, or a failed node's recovery: a task is a record over
+    the original instance, so any worker count works), on the state's
+    device.
+
+    Tasks are taken in (worker, slot) order and task i goes to slot
+    ``i // P_new`` of worker ``i % P_new``, as in the JAX package.  The new
+    state carries the best value (every worker's global and local best) and
+    the best worker's solution; every counter restarts.  Raises
+    ``ValueError`` when the capacity cannot hold the tasks."""
+    host = _host_leaves(state)
+    masks, sols = host["frontier.masks"], host["frontier.sols"]
+    depths, active = host["frontier.depths"], host["frontier.active"]
+    cap, W = masks.shape[1], masks.shape[2]
+    w_old, s_old = np.nonzero(active)  # (worker, slot) scan order
+    i = np.arange(w_old.size)
+    w_new, s_new = i % new_num_workers, i // new_num_workers
+    if w_old.size and int(s_new[-1]) >= cap:
+        raise ValueError(
+            f"resize: capacity {cap} too small for {w_old.size} pending tasks "
+            f"on {new_num_workers} workers"
+        )
+    local = host["local_best_val"]
+    new = blank_state_flat(new_num_workers, cap, W, int(local.min()), _SNAP)
+    for name, src in (("masks", masks), ("sols", sols), ("depths", depths)):
+        new[f"{_SNAP}.frontier.{name}"][w_new, s_new] = src[w_old, s_old]
+    new[f"{_SNAP}.frontier.active"][w_new, s_new] = True
+    new[f"{_SNAP}.best_sol"][:] = host["best_sol"][int(np.argmin(local))]
+    return worker_state_from_flat(new, state.best_val.device, _SNAP)

@@ -5,9 +5,10 @@ one worker and vmaps it; here the worker axis is a real leading tensor
 dimension, so every op takes and returns ``(P, CAP, ...)`` pools:
 
 * **explore** pops each worker's *deepest* active tasks (DFS, the paper's
-  caterpillar spine) with :func:`pop_deepest_cheap`;
+  caterpillar spine): :func:`pop_deepest_cheap` on the fused plane, the
+  full-capacity sort :func:`pop_deepest` on the reference one;
 * **donate** pops each donor's *shallowest* tasks (Alg. 6, batched) with
-  :func:`pop_k_shallowest`;
+  :func:`pop_k_shallowest` (one task: :func:`pop_shallowest`);
 * :func:`push_many` places children into free slots in slot order and
   counts what it could not place (``dropped``), so saturation is never
   silent.
@@ -17,6 +18,9 @@ wins (``lax.top_k`` order; torch's ``topk`` promises none, so the port uses
 a stable sort or explicit first indices).  JAX drops out-of-range scatter
 writes (``mode="drop"``); torch raises on them, so those writes are masked
 explicitly here.
+
+The ``_b`` views take a (B, P, CAP, ...) pool of B instances, the batched
+plane's lane state, where the JAX package vmaps once more over instances.
 
 The spill boundary (:func:`read_pool`, :func:`write_pool` and their lane
 forms) moves one instance's pool between the device and host numpy for the
@@ -46,9 +50,29 @@ class Frontier(NamedTuple):
         return self.depths.shape[-1]
 
 
+def make_frontier(num_workers: int, capacity: int, W: int, device) -> Frontier:
+    """P empty pools of ``capacity`` slots on ``device``."""
+    P = num_workers
+    return Frontier(
+        masks=torch.zeros((P, capacity, W), dtype=torch.int32, device=device),
+        sols=torch.zeros((P, capacity, W), dtype=torch.int32, device=device),
+        depths=torch.zeros((P, capacity), dtype=torch.int32, device=device),
+        active=torch.zeros((P, capacity), dtype=torch.bool, device=device),
+        overflow=torch.zeros((P,), dtype=torch.bool, device=device),
+        dropped=torch.zeros((P,), dtype=torch.int32, device=device),
+    )
+
+
 def pending_per_worker(f: Frontier) -> torch.Tensor:
-    """(P,) int32 pending tasks per worker."""
+    """Pending tasks summed over the slot axis only: (P,) int32 for a
+    (P, CAP) pool, (B, P) for a stacked one."""
     return f.active.sum(dim=-1, dtype=torch.int32)
+
+
+def pending_per_instance(f: Frontier) -> torch.Tensor:
+    """(B,) int32 pending tasks per instance lane of a (B, P, CAP) stacked
+    pool: the slot and worker axes are reduced."""
+    return f.active.sum(dim=(-1, -2), dtype=torch.int32)
 
 
 def top_priority_depth(f: Frontier) -> torch.Tensor:
@@ -61,6 +85,49 @@ def _take(rows: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """rows (P, CAP, ...) at slots (P, K) -> (P, K, ...)."""
     workers = torch.arange(rows.shape[0], device=rows.device)[:, None]
     return rows[workers, slots]
+
+
+def _pop_slots(f: Frontier, slots: torch.Tensor):
+    """Pop ``slots`` ((P, K), distinct per worker): (frontier, masks (P, K,
+    W), sols, depths (P, K), valid (P, K) -- the slots that were active)."""
+    return (
+        f._replace(active=f.active.scatter(1, slots, False)),
+        _take(f.masks, slots),
+        _take(f.sols, slots),
+        _take(f.depths, slots),
+        f.active.gather(1, slots),
+    )
+
+
+def pop_deepest(f: Frontier, count: int):
+    """Pop up to ``count`` deepest tasks per worker: the reference plane's
+    full-capacity selection (``lax.top_k`` in the JAX package).
+
+    Slots come deepest first, the lower slot first among equal depths
+    (``top_k``'s order, from a stable sort of the key ``where(active,
+    depth, -1)``); a worker with fewer active tasks gets its lowest inactive
+    slots after them, ``valid`` False.  Requires ``count <= capacity``.
+
+    Returns (frontier, masks (P, count, W), sols, depths (P, count),
+    valid (P, count) bool)."""
+    key = torch.where(f.active, f.depths, -1)
+    slots = torch.argsort(key, dim=-1, descending=True, stable=True)[:, :count]
+    return _pop_slots(f, slots)
+
+
+def pop_shallowest(f: Frontier):
+    """Pop each worker's single shallowest task (the donation, Alg. 6): the
+    first slot of least depth (``jnp.argmin``'s), slot 0 and ``valid``
+    False for an empty worker.
+
+    Returns (frontier, mask (P, W), sol (P, W), depth (P,), valid (P,))."""
+    cap = f.capacity
+    key = torch.where(f.active, f.depths, BIG_DEPTH)
+    least = key.amin(dim=-1, keepdim=True)
+    idx = torch.arange(cap, device=key.device)
+    slot = torch.where(key == least, idx, cap).amin(dim=-1, keepdim=True)
+    f, masks, sols, depths, valid = _pop_slots(f, slot)
+    return f, masks[:, 0], sols[:, 0], depths[:, 0], valid[:, 0]
 
 
 def pop_deepest_cheap(f: Frontier, count: int):
@@ -159,6 +226,52 @@ def push_many(f: Frontier, masks, sols, depths, valid) -> Frontier:
         overflow=f.overflow | (n_dropped > 0),
         dropped=f.dropped + n_dropped,
     )
+
+
+def push_one(f: Frontier, mask, sol, depth, valid) -> Frontier:
+    """Push one task per worker: ``mask``/``sol`` (P, W), ``depth`` and
+    ``valid`` (P,)."""
+    return push_many(f, mask[:, None], sol[:, None], depth[:, None], valid[:, None])
+
+
+# -- batched (instance-axis) views ---------------------------------------------
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def _unflat(x: torch.Tensor, B: int) -> torch.Tensor:
+    return x.view(B, x.shape[0] // B, *x.shape[1:])
+
+
+def _batched(op, f: Frontier, *args):
+    """``op`` over the B·P workers of a (B, P, ...) pool; every output
+    regains the (B, P) lead."""
+    B = f.active.shape[0]
+    out = op(Frontier(*map(_flat, f)), *args)
+    f2, rest = out[0], out[1:]
+    return (Frontier(*(_unflat(x, B) for x in f2)), *(_unflat(x, B) for x in rest))
+
+
+def pop_deepest_b(f: Frontier, count: int):
+    """:func:`pop_deepest` of every worker of a (B, P, ...) stacked pool;
+    outputs lead with (B, P)."""
+    return _batched(pop_deepest, f, count)
+
+
+def pop_k_shallowest_b(f: Frontier, count: int, limit: torch.Tensor):
+    """:func:`pop_k_shallowest` of a (B, P, ...) stacked pool, ``limit``
+    (B, P)."""
+    return _batched(pop_k_shallowest, f, count, _flat(limit))
+
+
+def push_many_b(f: Frontier, masks, sols, depths, valid) -> Frontier:
+    """:func:`push_many` into a (B, P, ...) stacked pool: ``masks``/``sols``
+    (B, P, K, W), ``depths``/``valid`` (B, P, K)."""
+    B = f.active.shape[0]
+    out = push_many(Frontier(*map(_flat, f)), *map(_flat, (masks, sols, depths, valid)))
+    return Frontier(*(_unflat(x, B) for x in out))
 
 
 # -- the spill boundary --------------------------------------------------------

@@ -13,10 +13,16 @@ crosses instances.  One superstep =
 
   1. **explore** — each worker expands up to ``lanes`` of its deepest tasks
      for ``steps_per_round`` rounds; all B·P·lanes tasks of a round go
-     through ONE batched ``expand_tasks`` (vertex cover: one ``vc_expand``
-     launch, its reduction loop included; max clique and MIS: one
-     ``clique_expand`` launch), each task row reading its own instance's
-     adjacency;
+     through ONE batched expansion, each task row reading its own
+     instance's adjacency.  ``explore_impl="fused"`` pops with
+     :func:`pop_deepest_cheap` and expands with the plugin's
+     ``expand_tasks`` (vertex cover: one ``vc_expand`` launch, its
+     reduction loop included; max clique and MIS: one ``clique_expand``
+     launch); ``"reference"`` pops with the full sort :func:`pop_deepest`
+     and always composes ``task_bound``, ``branch_once`` and
+     ``child_bound`` (their panels: ``batched_degrees`` sweeps for vertex
+     cover, one ``batched_expand_stats`` for max clique and MIS).  Both
+     give the same state;
   2. **control plane** — per worker (pending, shallowest depth, local best),
      packed into one int32 per worker with ``packed_status``;
   3. **replicated center** — the idle->donor matching
@@ -48,6 +54,7 @@ import torch
 from repro_torch.core.frontier import (
     Frontier,
     pending_per_worker,
+    pop_deepest,
     pop_deepest_cheap,
     pop_k_shallowest,
     push_many,
@@ -57,12 +64,12 @@ from repro_torch.problems.base import (
     BranchingProblem,
     ProblemData,
     WorkCounters,
+    compose_expand_tasks,
     for_task_rows,
     resolve_expand,
 )
 
-# the JAX package's registries of the two hot-path knobs; the port runs
-# "fused" and refuses "reference" (ROADMAP queue 1, item 3)
+# the JAX package's registries of the two hot-path knobs
 EXPLORE_IMPLS = ("fused", "reference")
 TRANSFER_IMPLS = ("sparse", "gather")
 
@@ -108,12 +115,6 @@ def _check_knobs(explore_impl: str, transfer_impl: str, donate_k: int) -> None:
             f"unknown explore_impl: {explore_impl!r}; "
             f"valid: {', '.join(EXPLORE_IMPLS)}"
         )
-    if explore_impl != "fused":
-        raise NotImplementedError(
-            f"explore_impl={explore_impl!r} is not ported to repro_torch yet "
-            f"(ROADMAP queue 1, item 3: pop_deepest with a full sort); "
-            f"use 'fused', which gives the same trajectory"
-        )
     if donate_k < 1:
         raise ValueError(f"donate_k must be >= 1, got {donate_k}")
 
@@ -127,15 +128,24 @@ def _explore_one_round(
     state: WorkerState,
     lanes: int,
     counters: WorkCounters | None = None,
+    explore_impl: str = "fused",
 ) -> WorkerState:
     """Each worker pops up to ``lanes`` deepest tasks; all (B·)P·lanes tasks
     are expanded in one batch (``data`` maps the rows to their instances);
-    children are pushed back per worker."""
-    f, masks, sols, depths, valid = pop_deepest_cheap(state.frontier, lanes)
+    children are pushed back per worker.  ``explore_impl`` picks the pop
+    and the expansion (the module docstring); both routes count their
+    reduction sweeps into ``counters``."""
+    if explore_impl == "fused":
+        f, masks, sols, depths, valid = pop_deepest_cheap(state.frontier, lanes)
+        expand = resolve_expand(problem)
+    else:
+        f, masks, sols, depths, valid = pop_deepest(state.frontier, lanes)
+        # ALWAYS the composed callables, as in the JAX package: the fused
+        # path's default for a plugin without expand_tasks, so the two
+        # routes cannot drift apart
+        expand = compose_expand_tasks(problem)
     P, L, W = masks.shape
-    ex = resolve_expand(problem)(
-        data, masks.reshape(P * L, W), sols.reshape(P * L, W), counters=counters
-    )
+    ex = expand(data, masks.reshape(P * L, W), sols.reshape(P * L, W), counters=counters)
     res = ex.step
     bounds = ex.bound.view(P, L)
     is_terminal = res.is_terminal.view(P, L)
@@ -278,7 +288,7 @@ def superstep(
 
     # 1. explore
     for _ in range(steps_per_round):
-        state = _explore_one_round(problem, data, state, lanes, counters)
+        state = _explore_one_round(problem, data, state, lanes, counters, explore_impl)
 
     # 2. control plane through the center + 5. best-value broadcast
     pending = pending_per_worker(state.frontier)

@@ -6,8 +6,8 @@ then takes ``gen`` tokens by argmax, as the example does; before it, the
 prefill runs ``Model.forward`` over the whole batch of prompts.  Weights are
 the port's seeded init (no weights exist in the repo).  It runs on the card
 unless ``--device cpu`` asks for the CPU, and raises without CUDA.  The
-example's balancer demonstration waits with the other mirrors (ROADMAP
-queue 1, item 12b).
+example's balancer demonstration is in its twin,
+``repro_torch.examples.serve_lm``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_lm                 # qwen1.5-0.5b

@@ -4,9 +4,9 @@ Each mirror runs what its ``benchmarks/`` namesake runs, on the port, on the
 CPU here: its rows must equal the JAX benchmark's rows exactly (the
 simulators' ticks, bytes and failed requests, the SPMD donation rows, the
 codecs' bytes, the balancer's makespans), and ``repro_torch.bench.run
---smoke`` must meet the exact pins of ``benchmarks/baseline.json``
-(``encoding_bytes`` and ``clique_smoke``'s sizes).  Wall-clock columns are
-left out of every comparison.
+--smoke`` (the namesake's smoke set) must meet the exact pins of
+``benchmarks/baseline.json``.  Wall-clock columns are left out of every
+comparison.  The other mirrors are ``tests/test_torch_bench_mirrors.py``.
 """
 
 import json
@@ -78,11 +78,17 @@ def test_clique_smoke_equals_jax():
 
 
 def test_run_smoke_meets_the_baseline_pins(tmp_path, monkeypatch, capsys):
+    """The namesake's whole smoke set, gated by ``check_regression``: every
+    benchmark of the baseline present, every exact pin met."""
+    from repro_torch.bench import check_regression
+
     monkeypatch.setattr(bench_run, "OUT", tmp_path / "BENCH.json")
     bench_run.main(["--smoke", "--device", "cpu"])
     out = json.loads((tmp_path / "BENCH.json").read_text())
-    assert sorted(out["benchmarks"]) == ["clique_smoke", "encoding_bytes"]
+    assert sorted(out["benchmarks"]) == sorted(bench_run.SMOKE_DEFAULT)
     assert "exact pins of baseline.json met" in capsys.readouterr().out
+    check_regression.main(["--bench", str(tmp_path / "BENCH.json")])
+    assert "within baseline" in capsys.readouterr().out
     # the pins come from the committed baseline, which holds wall floors
     # that the port does not apply
     baseline = json.loads(bench_run.BASELINE.read_text())

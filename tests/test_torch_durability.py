@@ -294,6 +294,36 @@ def test_port_service_checkpoint_restores_in_jax(tmp_path):
         _assert_same(jsvc.result(t), base[t])
 
 
+def test_port_service_checkpoint_gives_jax_its_own_stats_keys(tmp_path):
+    """A JAX service restored from a port checkpoint reports exactly the
+    ``stats()`` keys of one restored from a JAX checkpoint: the port's own
+    ``supersteps`` counter stays out of JAX's ``stats`` and comes back in
+    the port's own restore."""
+    cfg = dict(num_workers=2, steps_per_round=2, chunk_rounds=1, service_lanes=2)
+    graphs = [(24, 0.3, s) for s in range(1, 5)]
+    svc = SolveService("vertex_cover", SolveConfig(**cfg), **CPU)
+    jsvc = JaxService("vertex_cover", JaxConfig(**cfg))
+    for n, p, s in graphs:
+        svc.submit(erdos_renyi(n, p, seed=s))
+        jsvc.submit(jax_erdos_renyi(n, p, seed=s))
+    for _ in range(3):
+        svc.step()
+        jsvc.step()
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    svc.checkpoint(port_dir)
+    jsvc.checkpoint(jax_dir)
+    from_port, from_jax = JaxService.restore(port_dir), JaxService.restore(jax_dir)
+    from_port.drain()
+    from_jax.drain()
+    assert sorted(from_port.stats()) == sorted(from_jax.stats())
+    # the port's own restore keeps its counter, to continue it
+    ours = SolveService.restore(port_dir, **CPU)
+    assert ours.stats()["supersteps"] == svc.stats()["supersteps"] > 0
+    ours.drain()
+    svc.drain()
+    assert ours.stats()["supersteps"] == svc.stats()["supersteps"]
+
+
 def test_port_many_checkpoint_resumes_in_jax(tmp_path):
     """A port ``"many"`` checkpoint whose meta holds finalized results (the
     first bucket's, and the lanes collected at a compaction) resumes in the

@@ -82,3 +82,20 @@ def test_serve_solver_equals_jax(capsys):
     theirs = _lines(capsys.readouterr().out)
     assert ours == theirs
     assert len(sizes) == 8
+
+
+def test_serve_lm_balancer_equals_jax(capsys, monkeypatch):
+    """``examples/serve_lm.py``'s twin: the same token shape and the same
+    balancer line (a host simulation over the same seeded arrivals); the
+    sampled tokens come from each package's own seeded init."""
+    from examples import serve_lm as jax_serve_lm
+    from repro_torch.examples import serve_lm
+
+    out = serve_lm.main(["--device", "cpu"])
+    ours = capsys.readouterr().out.splitlines()
+    jax_serve_lm.main()
+    theirs = capsys.readouterr().out.splitlines()
+    assert tuple(out["tokens"].shape) == (4, 24)
+    assert ours[0].split(" in ")[0] == theirs[0].split(" in ")[0]
+    assert ours[-1] == theirs[-1] and ours[-1].startswith("[balancer] makespan")
+    assert out["balanced"]["rounds"] < out["unbalanced"]["rounds"]

@@ -96,6 +96,17 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.bench.encoding_bytes",
         "repro_torch.bench.balancer_bench",
         "repro_torch.bench.clique_smoke",
+        "repro_torch.bench.explore_throughput",
+        "repro_torch.bench.engine_throughput",
+        "repro_torch.bench.batch_throughput",
+        "repro_torch.bench.session_warm",
+        "repro_torch.bench.spill_throughput",
+        "repro_torch.bench.serve_load",
+        "repro_torch.bench.chaos_smoke",
+        "repro_torch.bench.resume_smoke",
+        "repro_torch.bench.kernel_bench",
+        "repro_torch.bench.check_regression",
+        "repro_torch.examples.serve_lm",
     ):
         assert name in report["modules"]
 
@@ -145,13 +156,18 @@ def test_unported_features_refuse():
     from repro_torch.graphs.generators import erdos_renyi
 
     g = erdos_renyi(12, 0.3, 0)
-    for kw in (
-        dict(use_mesh=True),
-        dict(explore_impl="reference"),
-    ):
-        session = SolverSession(config=SolveConfig(num_workers=2, **kw), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            session.solve(g)
+    session = SolverSession(config=SolveConfig(num_workers=2, use_mesh=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        session.solve(g)
+    # the reference explore path is ported (item 3b): it solves, as the
+    # fused one does
+    ref, fused = (
+        SolverSession(config=SolveConfig(num_workers=2, explore_impl=impl),
+                      device="cpu").solve(g)
+        for impl in ("reference", "fused")
+    )
+    assert (ref.best_size, ref.rounds, ref.nodes_expanded) == (
+        fused.best_size, fused.rounds, fused.nodes_expanded)
     # fault injection is ported (item 11): a one-crash plan on the live
     # service is injected and recovered
     from repro_torch.api import SolveService
