@@ -199,7 +199,28 @@ Phases (any failed check raises, so the exit code is not 0):
    ``benchmarks/baseline.json``, each mirror's ratios printed beside the
    namesake's bar (recorded, not gated), and ``kernel_bench``'s kernel times
    at the namesake's roofline shapes.  The kernels line gives (a)'s panel
-   launches as ``reference_launches`` and (b)'s as ``elastic_launches``.
+   launches as ``reference_launches`` and (b)'s as ``elastic_launches``;
+17. the multi-device solve (run after phase 16) — ``SolveConfig(use_mesh=
+   True)`` one worker a rank of a ``torch.distributed`` group, the ranks
+   started by ``repro_torch.launch.mesh.spawn_mesh`` (4 and 5 ranks share
+   the card through gloo with CUDA tensors, 1 rank runs NCCL): (a) every
+   solo and FPT golden of ``tests/golden_vc.json`` on its P ranks, equal to
+   the golden and to the single-process solve (``reduce_sweeps`` too); (b)
+   the paper's width, G(600, 4/599, seed 0) (W = 19), on 4 ranks capped at
+   32 supersteps of 32 explore rounds, equal field for field to the
+   single-process 4-worker solve with the same cap, run again with the
+   collectives timed (a device sync around each); (c) max clique on
+   ``p_hat_like(300, 0.325, 0)`` on 4 ranks capped the same way; (d) a
+   1-rank NCCL mesh on ``golden_smoke.json``'s graph, twice (NCCL sets up
+   its communicator at the first collective), each equal to the
+   single-process 1-worker solve; (e) a checkpointed 4-rank solve, rank 0
+   writing, equal to the single-process durable solve, and its checkpoint
+   resumed in one process to the uninterrupted result; (f)
+   ``launch.solve --use-mesh`` (its own 4 ranks) printing the
+   single-process command's ``[solve]`` lines.  Each rank launches exactly
+   one expansion kernel per explore round and nothing else; both walls per
+   superstep and the collectives' ms per superstep are printed.  The
+   kernels line gives every rank's launches, summed, as ``mesh_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -216,6 +237,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2572,6 +2594,264 @@ def phase_reference(dev) -> dict:
     return {"panels": panels, "vc_expand": elastic}
 
 
+# -- phase 17: the multi-device solve, one worker a rank ---------------------------
+
+# the mesh's cases: 4 ranks sharing the one card through gloo, each a process
+# with one worker; the paper's width (W = 19) and max clique capped at
+# MESH_CAP supersteps of 32 explore rounds; golden_smoke.json's graph for the
+# 1-rank NCCL mesh and the mesh checkpoint
+MESH_RANKS = 4
+MESH_CAP = 32
+MESH_TIMEOUT_S = 300.0
+MESH_DURABLE = dict(num_workers=MESH_RANKS, steps_per_round=8, chunk_rounds=4, max_rounds=16)
+MESH_RESUME_STEP = 8
+
+
+def _result_fields(r) -> dict:
+    """A SolveResult's every deterministic field."""
+    d = r.to_dict()
+    d.pop("wall_s")
+    return d
+
+
+def _mesh_rank(mesh, cases: list, ckpt_dir: str) -> dict:
+    """One rank of a phase-17 job: each ``(label, problem, graph, config
+    kw, timing)`` case solved on the mesh through the session, with this
+    rank's launches counted from 0 just before and read just after, its
+    wall, and with ``timing`` the collectives' count and synchronised host
+    time (the case named ``durable`` checkpoints into ``ckpt_dir``)."""
+    import torch
+
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.kernels import counts
+
+    out = {}
+    for label, problem, graph, kw, timing in cases:
+        if label == "durable":
+            kw = dict(kw, checkpoint_dir=ckpt_dir, checkpoint_every=1)
+        g = _build_graph(graph)
+        session = SolverSession(problem=problem, config=SolveConfig(use_mesh=True, **kw),
+                                device=mesh.device)
+        mesh.timing, mesh.collectives, mesh.collective_s = timing, 0, 0.0
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        counts.reset()
+        t = time.perf_counter()
+        r = session.solve(g, mesh=mesh)
+        wall = time.perf_counter() - t
+        out[label] = {"result": _result_fields(r), "launches": counts.snapshot(),
+                      "wall": wall, "collectives": mesh.collectives,
+                      "collective_s": mesh.collective_s, "backend": mesh.backend,
+                      "device": str(mesh.device)}
+    return out
+
+
+def _single(problem: str, graph: dict, kw: dict, dev, **solve_kw) -> tuple:
+    """The single-process solve of a case on the card: (result fields,
+    launches, wall)."""
+    from repro_torch.api import SolveConfig, SolverSession
+    from repro_torch.kernels import counts
+
+    session = SolverSession(problem=problem, config=SolveConfig(**kw), device=dev)
+    counts.reset()
+    t = time.perf_counter()
+    r = session.solve(_build_graph(graph), **solve_kw)
+    wall = time.perf_counter() - t
+    return _result_fields(r), counts.snapshot(), wall
+
+
+def _mesh_job(ranks: int, cases: list, ckpt_dir: str = "", device=None) -> tuple:
+    """Run the cases on a job of ``ranks`` ranks; checks every rank's result
+    equal.  Returns (rank 0's entries, every rank's launches summed by
+    kernel, the job's wall)."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    t = time.perf_counter()
+    out = spawn_mesh(_mesh_rank, ranks, device=device, timeout_s=MESH_TIMEOUT_S,
+                     args=(cases, ckpt_dir))
+    wall = time.perf_counter() - t
+    total = {}
+    for label, *_ in cases:
+        for r, rank in enumerate(out):
+            check(rank[label]["result"] == out[0][label]["result"],
+                  f"mesh {label}: rank {r} returned another result than rank 0")
+            for k, v in rank[label]["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return out, total, wall
+
+
+def _per_rank_round(label: str, ranks: list, kernel: str, steps_per_round: int) -> None:
+    """Each rank launched exactly one ``kernel`` per explore round and
+    nothing else."""
+    for r, rank in enumerate(ranks):
+        want = rank[label]["result"]["rounds"] * steps_per_round
+        check(rank[label]["launches"] == {kernel: want},
+              f"mesh {label}: rank {r} launched {rank[label]['launches']}, want one "
+              f"{kernel} per explore round ({want}) and nothing else")
+
+
+def _vc(graph: dict) -> dict:
+    return {"generator": "erdos_renyi", **graph}
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 17: the solve one worker a rank of a torch.distributed group on
+    the card.  Returns every rank's mesh launches summed by kernel."""
+    from repro_torch.api import SolveConfig
+
+    golden = json.loads((ROOT / "tests" / "golden_vc.json").read_text())
+    smoke = json.loads((DATA / "golden_smoke.json").read_text())
+    goldens = {}
+    for label, c in golden["solo"].items():
+        kw = dict(c["solve_kw"])
+        if "policy_priority" in kw:
+            kw["policy"] = "priority" if kw.pop("policy_priority") else "random"
+        goldens[label] = (_vc(c["graph"]), kw, c["result"])
+    f = golden["fpt"]
+    goldens["fpt"] = (_vc(f["graph"]), dict(num_workers=4, mode="fpt", k=f["k"]), f["result"])
+    paper_kw = dict(num_workers=MESH_RANKS, max_rounds=MESH_CAP)
+    paper = _vc(PAPER_GRAPH)
+    clique = {"generator": "p_hat_like", **CLIQUE_GRAPH}
+    smoke_g = _vc(smoke["graph"])
+    cases4 = [(label, "vertex_cover", g, kw, False) for label, (g, kw, _) in goldens.items()
+              if kw["num_workers"] == 4]
+    cases4 += [
+        ("paper", "vertex_cover", paper, paper_kw, False),
+        ("paper_timed", "vertex_cover", paper, paper_kw, True),
+        ("clique", "max_clique", clique, paper_kw, False),
+        ("durable", "vertex_cover", smoke_g, MESH_DURABLE, False),
+    ]
+    cases5 = [(label, "vertex_cover", g, kw, False) for label, (g, kw, _) in goldens.items()
+              if kw["num_workers"] == 5]
+    smoke1_kw = dict(num_workers=1, max_rounds=MESH_CAP)
+    # twice: NCCL sets its communicator up at the group's first collective
+    cases1 = [(label, "vertex_cover", smoke_g, smoke1_kw, True)
+              for label in ("smoke_1rank", "smoke_1rank_warm")]
+
+    total = {}
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_ckpt_") as tmp:
+        mesh_ck = os.path.join(tmp, "mesh")
+        single_ck = os.path.join(tmp, "single")
+        ranks4, launches, walls[4] = _mesh_job(MESH_RANKS, cases4, mesh_ck)
+        ranks5, launches5, walls[5] = _mesh_job(5, cases5)
+        ranks1, launches1, walls[1] = _mesh_job(1, cases1)
+        for part in (launches, launches5, launches1):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+        print(f"[smoke] mesh jobs on the card ({nvidia_smi()}): 4 ranks "
+              f"{ranks4[0]['paper']['backend']} on {ranks4[0]['paper']['device']} "
+              f"{walls[4]:.1f} s, 5 ranks {walls[5]:.1f} s, 1 rank "
+              f"{ranks1[0]['smoke_1rank']['backend']} {walls[1]:.1f} s (job walls: process "
+              f"start, rendezvous and the cases)")
+        check(ranks4[0]["paper"]["backend"] == "gloo" and ranks1[0]["smoke_1rank"]["backend"]
+              == "nccl", "the mesh's backends: want gloo for 4 ranks on one card, nccl for 1")
+
+        # (a) the goldens, P ranks each
+        for label, (g, kw, want) in goldens.items():
+            ranks = ranks5 if kw["num_workers"] == 5 else ranks4
+            got = ranks[0][label]["result"]
+            s = got["stats"]
+            rec = {k: got[k] for k in ("best_size", "best_sol", "rounds", "nodes_expanded",
+                                       "tasks_transferred")}
+            rec.update({k: s[k] for k in ("transfer_rounds", "transfer_bytes_total",
+                                          "overflow")})
+            check(rec == want, f"mesh golden {label}: got {rec}, want {want}")
+            single, _, _ = _single("vertex_cover", g, kw, dev)
+            check(got == single, f"mesh golden {label}: differs from the single-process solve")
+            _per_rank_round(label, ranks, "vc_expand", SolveConfig(**kw).steps_per_round)
+            print(f"[smoke] mesh golden {label}: {kw['num_workers']} ranks, best="
+                  f"{got['best_size']} rounds={got['rounds']} == JAX golden and the "
+                  f"single-process solve (reduce_sweeps {s['reduce_sweeps']}); per rank "
+                  f"{ranks[0][label]['launches']}")
+
+        # (b) the paper's width on 4 ranks, (c) max clique, each capped
+        spr = SolveConfig().steps_per_round
+        for label, problem, graph, kernel in (("paper", "vertex_cover", paper, "vc_expand"),
+                                              ("clique", "max_clique", clique, "clique_expand")):
+            single, single_l, single_wall = _single(problem, graph, paper_kw, dev)
+            got = ranks4[0][label]
+            check(got["result"] == single,
+                  f"mesh {label}: differs from the single-process {MESH_RANKS}-worker solve")
+            check(single_l == {kernel: single["rounds"] * spr},
+                  f"single-process {label} launched {single_l}")
+            _per_rank_round(label, ranks4, kernel, spr)
+            rounds = got["result"]["rounds"]
+            line = (f"[smoke] mesh {label}: {problem} on {MESH_RANKS} ranks, {rounds} "
+                    f"supersteps of {spr} explore rounds, best={got['result']['best_size']} "
+                    f"nodes={got['result']['nodes_expanded']} == the single-process "
+                    f"{MESH_RANKS}-worker solve; wall/superstep mesh "
+                    f"{got['wall'] / rounds * 1e3:.3f} ms, single-process "
+                    f"{single_wall / rounds * 1e3:.3f} ms")
+            if label == "paper":
+                timed_runs = [rank["paper_timed"] for rank in ranks4]
+                check(all(t["result"] == single for t in timed_runs),
+                      "mesh paper (timed): differs from the single-process solve")
+                per = [t["collective_s"] / rounds * 1e3 for t in timed_runs]
+                line += (f"; timed run (a device sync around each collective): "
+                         f"{timed_runs[0]['collectives'] / rounds:.1f} collectives/superstep, "
+                         f"collectives {per[0]:.3f} ms/superstep on rank 0 (max over ranks "
+                         f"{max(per):.3f}), wall/superstep "
+                         f"{timed_runs[0]['wall'] / rounds * 1e3:.3f} ms")
+            print(line + f" ({nvidia_smi()})")
+
+        # (d) a 1-rank NCCL mesh, its first solve and a second one
+        single, _, single_wall = _single("vertex_cover", smoke_g, smoke1_kw, dev)
+        for label in ("smoke_1rank", "smoke_1rank_warm"):
+            got = ranks1[0][label]
+            check(got["result"] == single, f"mesh {label}: differs from the 1-worker solve")
+            _per_rank_round(label, ranks1, "vc_expand", spr)
+            rounds = got["result"]["rounds"]
+            print(f"[smoke] mesh {label}: 1 rank on nccl, {rounds} supersteps == the "
+                  f"single-process 1-worker solve; timed run (a device sync around each "
+                  f"collective): wall/superstep {got['wall'] / rounds * 1e3:.3f} ms against "
+                  f"{single_wall / rounds * 1e3:.3f} ms, {got['collectives'] / rounds:.1f} "
+                  f"collectives/superstep, {got['collective_s'] / rounds * 1e3:.3f} "
+                  f"ms/superstep")
+
+        # (e) the mesh checkpoint resumed in a single process on the card
+        got = ranks4[0]["durable"]["result"]
+        durable_kw = dict(MESH_DURABLE, checkpoint_dir=single_ck, checkpoint_every=1)
+        single, _, _ = _single("vertex_cover", smoke_g, durable_kw, dev)
+        check(got == single, "mesh durable: differs from the single-process durable solve")
+        _per_rank_round("durable", ranks4, "vc_expand", MESH_DURABLE["steps_per_round"])
+        step = os.path.join(mesh_ck, f"step_{MESH_RESUME_STEP}")
+        resumed, resumed_l, _ = _single("vertex_cover", smoke_g, MESH_DURABLE, dev,
+                                        resume_from=step)
+        plain, _, _ = _single("vertex_cover", smoke_g, MESH_DURABLE, dev)
+        for d in (resumed, plain):
+            d["stats"].pop("resumed_from")
+        check(resumed == plain, "mesh checkpoint resumed in one process differs from the "
+              "uninterrupted solve")
+        want = (plain["rounds"] - MESH_RESUME_STEP) * MESH_DURABLE["steps_per_round"]
+        check(resumed_l == {"vc_expand": want},
+              f"the resume launched {resumed_l}, want {want} vc_expand")
+        print(f"[smoke] mesh checkpoint: {got['stats']['checkpoints_written']} written by rank "
+              f"0 == the single-process durable solve; step_{MESH_RESUME_STEP} resumed in one "
+              f"process == the uninterrupted solve, launches {resumed_l}")
+
+        # (f) the CLI's own ranks
+        args = ["--graph", "gnp", "--n", str(smoke["graph"]["n"]), "--p",
+                str(smoke["graph"]["p"]), "--seed", str(smoke["graph"]["seed"]),
+                "--workers", str(MESH_RANKS), "--steps-per-round", "8", "--max-rounds", "16",
+                "--chunk-rounds", "4"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.solve", *args, *x],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for x in ((), ("--use-mesh",))]
+        lines = []
+        for p in procs:
+            out, err = p.communicate(timeout=MESH_TIMEOUT_S)
+            check(p.returncode == 0, f"launch.solve exited {p.returncode}: {err[-2000:]}")
+            lines.append([re.sub(r" wall=\S+", "", ln) for ln in out.splitlines()
+                          if ln.startswith("[solve]")])
+        check(len(lines[0]) == 2 and lines[0] == lines[1],
+              f"launch.solve --use-mesh printed {lines[1]}, without the mesh {lines[0]}")
+        print(f"[smoke] launch.solve --use-mesh on the card: {lines[1][1]}")
+    return total
+
+
 # -- the LM serving path (phases 8-10) ------------------------------------------
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the
@@ -3215,6 +3495,17 @@ def main() -> None:
     kernels["vc_expand"]["elastic_launches"] = reference["vc_expand"]
     kernels["vc_expand"]["elastic_path"] = (
         "solves from resized snapshots of G(300, 4/299, 0), phase 16")
+    # and the solve one worker a rank: every rank's launches, summed
+    mesh = timed("mesh", phase_mesh, dev)
+    for name in ("vc_expand", "clique_expand"):
+        kernels[name]["mesh_launches"] = mesh.get(name, 0)
+        check(kernels[name]["mesh_launches"] > 0, f"phase 17 launched no {name}")
+    check(set(mesh) == {"vc_expand", "clique_expand"}, f"phase 17 launched {mesh}")
+    kernels["vc_expand"]["mesh_path"] = (
+        "one worker a rank, summed over the ranks: the golden_vc.json goldens on 4 and 5 "
+        "ranks, the paper's G(600) on 4 ranks (twice), a 1-rank NCCL mesh (twice) and a "
+        "checkpointed solve on golden_smoke.json's graph, phase 17")
+    kernels["clique_expand"]["mesh_path"] = "max clique on p_hat_like(300) on 4 ranks, phase 17"
 
     # every f32 comparison on the card in full f32: no TF32 (the matmul
     # default, stated; cuDNN's default is TF32)

@@ -22,9 +22,11 @@ the last good checkpoint (or replayed from the startup placement), a crashed
 lane of the batch is re-admitted from its startup placement, and checkpoint
 I/O errors are retried under the injector's virtual backoff.
 
-Features of the JAX drivers that the port does not carry yet (the mesh) are
-refused with ``NotImplementedError`` naming their ROADMAP item; none is
-silently ignored.
+With ``cfg.use_mesh`` (or a ``mesh``) the solo solve runs one worker a rank
+of a ``torch.distributed`` group (:mod:`repro_torch.launch.mesh`), as the
+JAX package's ``shard_map`` branch runs one worker a device.  The batched
+plane, spill and the service have no mesh path, in either package, and
+refuse one with the JAX package's errors.
 """
 
 from __future__ import annotations
@@ -56,7 +58,6 @@ from repro_torch.core.superstep import (
     lane_swap_in,
     map_state,
     slice_lanes,
-    state_to,
     step_lanes,
     worker_state_from_flat,
     worker_state_to_flat,
@@ -64,19 +65,6 @@ from repro_torch.core.superstep import (
 from repro_torch.graphs.bitgraph import n_words
 from repro_torch.problems import base as problems_base
 from repro_torch.problems.base import WorkCounters
-
-# config knobs / arguments the port refuses, with the ROADMAP item that ports them
-_NOT_PORTED = {
-    "use_mesh": "queue 1, item 13 (multi-device path)",
-    "mesh": "queue 1, item 13 (multi-device path)",
-}
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {_NOT_PORTED[what]})"
-    )
-
 
 def _io_policy(injector) -> tuple:
     """``(retry, fault_hook)`` for the checkpoint store: the injector's
@@ -177,17 +165,44 @@ def solve_spmd(
     the result is the undisturbed one's, and ``reduce_sweeps`` rewinds with
     the state (to the checkpoint's running sum, or 0).  Checkpoint reads and
     writes run under the injector's retry policy and I/O hook; the spiller
-    heals the corruption it injects."""
-    if cfg.use_mesh:
-        _refuse("use_mesh")
+    heals the corruption it injects.
+
+    Mesh: with ``cfg.use_mesh`` (the mesh of the process group this
+    process is a rank of, made by
+    :func:`~repro_torch.launch.mesh.make_solver_mesh` on ``device``) or a
+    ``mesh`` passed in, each rank steps one worker: every rank builds the
+    same startup placement (or loads the same checkpoint, or takes the same
+    ``initial_state``) and keeps its row.  A checkpoint gathers the whole
+    state at the boundary, rank 0 writes it and every rank waits at a
+    barrier; it is the file a single-process solve writes (the fingerprint
+    holds no ``use_mesh``), so either resumes the other, in both packages.
+    The injector ticks alike on every rank (its I/O faults hit rank 0's
+    writes and every rank's reads).  The result is gathered once, at the
+    end, and every rank returns it.  Spill has no mesh path (``ValueError``,
+    the JAX package's)."""
+    mesh = _solve_mesh(cfg, mesh, device)
     if mesh is not None:
-        _refuse("mesh")
+        if cfg.frontier_spill:
+            raise ValueError(
+                "frontier_spill has no mesh path yet (vmap virtual workers "
+                "only) — drop use_mesh or disable frontier_spill"
+            )
+        device = mesh.device
+    # where whole states are built: a mesh rank keeps its block of one
+    host = device if mesh is None else torch.device("cpu")
+
+    def local(state, copy: bool = False):
+        """A whole (P, ...) state as this process steps it: on the device,
+        or this rank's (1, ...) block of it (always a copy)."""
+        if mesh is not None:
+            return mesh.shard(state)
+        return map_state(lambda x: x.to(device, copy=copy), state)
 
     k = cfg.solo_k()
     W = n_words(g.n)
     initial_best = problems_base.initial_bound(spec, g, cfg.mode, k)
     pad = make_codec(cfg.codec, g.n, problem=spec).pad_words
-    counters = WorkCounters()
+    counters = WorkCounters(mesh=mesh)
     use_fpt = cfg.mode == "fpt"
     fpt_bound = int(spec.fpt_target(k)) if use_fpt else None
     io_retry, io_hook = _io_policy(injector)
@@ -203,16 +218,16 @@ def solve_spmd(
     cap = cfg.capacity or (4 * g.n + 8 * cfg.lanes)
 
     def build_startup():
-        return _engine.make_instance_state(
-            spec, g, cfg.num_workers, cap, W, initial_best, device
-        )
+        return local(_engine.make_instance_state(
+            spec, g, cfg.num_workers, cap, W, initial_best, host
+        ))
 
     def restore(ck):
         """A solo checkpoint's state and rounds; its running
         ``reduce_sweeps`` (a port checkpoint's meta; 0 in a JAX one) goes
         back into the counters."""
         counters.reduce_sweeps = int(ck.meta.get("reduce_sweeps", 0))
-        return worker_state_from_flat(ck.arrays, device), ck.rounds
+        return local(worker_state_from_flat(ck.arrays, host)), ck.rounds
 
     if cfg.resume_from is not None:
         if initial_state is not None:
@@ -224,7 +239,7 @@ def solve_spmd(
     elif initial_state is None:
         state = build_startup()
     else:
-        state = state_to(initial_state, device)
+        state = local(initial_state)
         cap = int(state.frontier.masks.shape[-2])
 
     def new_spiller(arrays=None):
@@ -238,8 +253,11 @@ def solve_spmd(
         return sp
 
     spill = new_spiller(None if ck is None else ck.arrays)
-    plane = cache.solo_plane(spec, cfg, pad, use_fpt)
-    cache.note("solo", spec, cfg, pad, use_fpt, (g.n, W, cap, cfg.num_workers))
+    if mesh is None:
+        plane = cache.solo_plane(spec, cfg, pad, use_fpt)
+        cache.note("solo", spec, cfg, pad, use_fpt, (g.n, W, cap, cfg.num_workers))
+    else:
+        plane = cache.mesh_plane(spec, cfg, pad, use_fpt, mesh)
 
     t0 = time.perf_counter()
     chunks = 0
@@ -274,7 +292,7 @@ def solve_spmd(
                 elif initial_state is not None:
                     # as the JAX package does, the replay from a caller's
                     # state keeps the spiller (ROADMAP section 3)
-                    state = map_state(lambda x: x.to(device, copy=True), initial_state)
+                    state = local(initial_state, copy=True)
                     rounds = 0
                     counters.reduce_sweeps = 0
                 else:
@@ -287,15 +305,20 @@ def solve_spmd(
         if done:
             break
         if cfg.checkpoint_dir is not None and chunks % cfg.checkpoint_every == 0:
-            _write_solo_checkpoint(spec, g, cfg, fingerprint, state, rounds,
-                                   counters.reduce_sweeps, spill,
-                                   io_retry, io_hook)
+            whole = state if mesh is None else mesh.gather_state(state)
+            if mesh is None or mesh.rank == 0:
+                _write_solo_checkpoint(spec, g, cfg, fingerprint, whole, rounds,
+                                       counters.reduce_sweeps, spill,
+                                       io_retry, io_hook)
+            if mesh is not None:
+                mesh.barrier()  # no rank reads a checkpoint before it is whole
             checkpoints_written += 1
-    host = _engine._fetch_batch_state(map_state(lambda x: x[None], state))
+    whole = state if mesh is None else mesh.gather_state(state)
+    host_state = _engine._fetch_batch_state(map_state(lambda x: x[None], whole))
     wall = time.perf_counter() - t0
 
     r = _engine._extract_result(
-        host,
+        host_state,
         0,
         spec,
         g,
@@ -311,6 +334,30 @@ def solve_spmd(
     r.resumed_from = cfg.resume_from
     _patch_spill(r, spill)
     return r
+
+
+def _solve_mesh(cfg: SolveConfig, mesh, device):
+    """The mesh a solo solve runs on: ``mesh`` as given (checked), the
+    process group's for ``cfg.use_mesh``, else None (one process).  A CUDA
+    ``device`` without an index lets each rank take its own card."""
+    from repro_torch.launch.mesh import SolverMesh, make_solver_mesh
+
+    if mesh is None:
+        if not cfg.use_mesh:
+            return None
+        dev = torch.device(device)
+        return make_solver_mesh(cfg.num_workers, device=None if dev == torch.device("cuda") else dev)
+    if not isinstance(mesh, SolverMesh):
+        raise ValueError(
+            f"mesh must be a repro_torch.launch.mesh.SolverMesh "
+            f"(make_solver_mesh), got {type(mesh).__name__}"
+        )
+    if mesh.size != cfg.num_workers:
+        raise ValueError(
+            f"a solver mesh has one worker per rank: num_workers="
+            f"{cfg.num_workers} but the mesh has {mesh.size} ranks"
+        )
+    return mesh
 
 
 def _patch_spill(r, spill) -> None:

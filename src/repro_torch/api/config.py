@@ -5,9 +5,10 @@ validation, checked against the port's own registries, so one config JSON
 means the same solve in both packages.  The device is not a config field:
 it is an argument of :class:`repro_torch.api.session.SolverSession`.
 
-Knobs whose feature the port does not carry yet (``use_mesh``, the
-simulator knobs) are validated here as in the JAX package; the backend
-refuses the ones that would change a solve.
+``use_mesh`` runs the solo spmd solve one worker a rank of the
+``torch.distributed`` group the process belongs to
+(:mod:`repro_torch.launch.mesh`); ``solve_many``, spill and the service
+refuse it, as in the JAX package.
 """
 
 from __future__ import annotations

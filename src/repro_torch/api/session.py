@@ -8,6 +8,9 @@ config, device) once and owns a :class:`~repro_torch.api.cache.PlaneCache`
 for another: ``device=None`` means ``"cuda"``, and a session on CUDA raises
 ``RuntimeError`` when CUDA is absent instead of running on the CPU.  The CPU
 path (``device="cpu"``) runs the kernels' plain versions; the tests use it.
+``SolveConfig(use_mesh=True)`` solves one worker a rank of the
+``torch.distributed`` group the process belongs to (ranks started by
+``torchrun`` or :func:`repro_torch.launch.mesh.spawn_mesh`).
 
 Asynchronous admission: ``submit(g) -> ticket`` queues into the serving
 :class:`~repro_torch.serving.balancer.SolveBatcher`, ``poll()`` solves every
@@ -90,9 +93,14 @@ class SolverSession:
         **backend_kw,
     ) -> SolveResult:
         """Solve one instance; ``backend_kw`` passes backend-specific extras
-        (spmd: ``initial_state``, and ``injector``, a
+        (spmd: ``initial_state``, ``injector``, a
         :class:`~repro_torch.faults.FaultInjector` whose faults the solve
-        heals).
+        heals, and ``mesh``, a :class:`~repro_torch.launch.mesh.SolverMesh`).
+
+        With ``config.use_mesh`` (or a ``mesh``) every rank of the process
+        group calls this alike and steps one worker (spmd; the mesh's
+        device, not the session's, when a mesh is passed); each rank
+        returns the same result.
 
         ``checkpoint_dir``/``resume_from`` override the config's durability
         knobs for THIS call (spmd): a

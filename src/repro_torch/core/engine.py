@@ -304,8 +304,9 @@ def solve(
     :class:`~repro_torch.api.SolveConfig` (``compact_threshold`` is accepted
     and inert, as there), every call shares the process-wide
     ``LEGACY_CACHE``, and the legacy :class:`EngineResult` comes back.  A
-    ``mesh`` is refused with ``NotImplementedError`` (ROADMAP queue 1, item
-    13)."""
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.SolverMesh` of
+    ``num_workers`` ranks; anything else raises ``ValueError``) runs the
+    solve one worker a rank, on the mesh's device."""
     warnings.warn(_DEPRECATED.format(verb="solve"), DeprecationWarning, stacklevel=2)
     from repro_torch.api import backends as _api
     from repro_torch.api.session import resolve_device

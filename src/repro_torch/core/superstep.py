@@ -39,6 +39,14 @@ A round with no match leaves the state exactly as the skipped JAX transfer
 does (the pops and pushes are masked to nothing), so the port runs the data
 plane unconditionally and gates only the transfer counters: no host sync.
 
+The ``shard_map`` path is the ``mesh`` argument: one worker a rank of a
+``torch.distributed`` group (:mod:`repro_torch.launch.mesh`), each rank
+holding a (1, ...) block.  Exploration is the same code on that block
+(one expansion launch a round with ``lanes`` rows); phases 2-5 go through
+the mesh's collectives instead of indexing (:func:`_center_on_mesh`).
+:func:`build_superstep_fn` and :func:`build_chunk_fn` are the JAX
+package's public builders over both.
+
 Every integer is pinned to the JAX package's dtype (int32), so wraparound
 matches, e.g. in ``donor_key = top_depth * P + idx``.
 """
@@ -96,12 +104,6 @@ def map_state(fn, *states: WorkerState) -> WorkerState:
         Frontier(*[fn(*xs) for xs in zip(*(s.frontier for s in states))]),
         *[fn(*xs) for xs in zip(*(s[1:] for s in states))],
     )
-
-
-def state_to(state: WorkerState, device) -> WorkerState:
-    """``state`` with every leaf on ``device``."""
-    return map_state(lambda x: x.to(device), state)
-
 
 
 def _check_knobs(explore_impl: str, transfer_impl: str, donate_k: int) -> None:
@@ -266,6 +268,7 @@ def superstep(
     donate_k: int = 1,
     explore_impl: str = "fused",
     counters: WorkCounters | None = None,
+    mesh=None,
 ):
     """One BSP round for the B·P workers of the B instances of ``data``
     (``state`` leaves lead with B·P, instance-major).  Returns (state,
@@ -274,11 +277,21 @@ def superstep(
 
     ``transfer_pad_words`` is the codec's payload on top of the native
     (mask, sol, depth) record (the basic encoding's n·W words): it counts
-    in ``payload_words`` and carries no state."""
+    in ``payload_words`` and carries no state.
+
+    With a ``mesh`` (a :class:`~repro_torch.launch.mesh.SolverMesh`) the
+    state is this rank's (1, ...) block of one instance and phases 2-5 run
+    over the mesh's collectives (:func:`_center_on_mesh`); ``done`` is
+    then the same on every rank."""
     _check_knobs(explore_impl, transfer_impl, donate_k)
     B = data.adj.shape[0]
     BP, W = state.best_sol.shape
     P = BP // B
+    if mesh is not None and BP != 1:
+        raise ValueError(
+            f"a mesh rank holds one worker of one instance, got {B} instance(s) "
+            f"of {P} worker(s)"
+        )
     dev = state.best_sol.device
     rec_words = 2 * W + 1 + transfer_pad_words
     data = for_task_rows(data, P * lanes)
@@ -289,6 +302,12 @@ def superstep(
     # 1. explore
     for _ in range(steps_per_round):
         state = _explore_one_round(problem, data, state, lanes, counters, explore_impl)
+    if mesh is not None:
+        return _center_on_mesh(
+            mesh, state, policy_priority=policy_priority, packed_status=packed_status,
+            skip_empty_transfer=skip_empty_transfer, transfer_impl=transfer_impl,
+            donate_k=donate_k, transfer_pad_words=transfer_pad_words,
+        )
 
     # 2. control plane through the center + 5. best-value broadcast
     pending = pending_per_worker(state.frontier)
@@ -360,6 +379,94 @@ def superstep(
     return state, done
 
 
+def _center_on_mesh(
+    mesh,
+    state: WorkerState,
+    *,
+    policy_priority: bool,
+    packed_status: bool,
+    skip_empty_transfer: bool,
+    transfer_impl: str,
+    donate_k: int,
+    transfer_pad_words: int,
+):
+    """Phases 2-5 of one rank's worker over the mesh's collectives, as the
+    JAX package's ``shard_map`` body runs them (superstep.py:369-466):
+    ``state`` is the rank's (1, ...) block.
+
+    The status words (or, without ``packed_status``, the (pending,
+    top_depth, local_best) rows) are all-gathered, the best value is
+    min-reduced, and every rank runs the center's matching on the same
+    table.  The data plane then ships the matched blocks: ``"sparse"``
+    scatters each donor's (donate_k, REC) record block into row
+    ``send_to[me]`` of a zero (P, donate_k, REC) buffer that one sum
+    delivers; ``"gather"`` all-gathers every block.  Under
+    ``skip_empty_transfer`` a round with no match skips the data plane on
+    every rank (the replicated match count decides, as JAX's ``lax.cond``
+    does).  ``done`` is the sum of pending over the ranks, == 0."""
+    P, me = mesh.size, mesh.rank
+    W = state.best_sol.shape[-1]
+    rec_words = 2 * W + 1 + transfer_pad_words
+    pending = pending_per_worker(state.frontier)  # (1,)
+    top_depth = top_priority_depth(state.frontier)
+    if packed_status:
+        word = (pending.clamp(0, 0x7FFF) << 16) | top_depth.clamp(0, 0xFFFF)
+        table = mesh.all_gather(word)  # (P,)
+        pend_t, depth_t = table >> 16, table & 0xFFFF
+        global_best = mesh.all_min(torch.minimum(state.local_best_val, state.best_val))
+    else:
+        row = torch.stack([pending, top_depth, state.local_best_val], dim=-1)
+        table = mesh.all_gather(row)  # (P, 3)
+        pend_t, depth_t = table[:, 0], table[:, 1]
+        global_best = torch.minimum(table[:, 2].amin(), state.best_val)
+    state = state._replace(best_val=global_best)
+
+    send_to, recv_from = match_idle_to_donors(
+        pend_t[None], depth_t[None], policy_priority, state.rounds
+    )
+    send_to, recv_from = send_to[0], recv_from[0]  # (P,), the same on every rank
+    n_don = torch.where(send_to >= 0, torch.clamp(pend_t - 1, max=donate_k), 0)
+
+    if not skip_empty_transfer or int((send_to >= 0).sum()) > 0:
+        f2, d_masks, d_sols, d_depths, d_valid = pop_k_shallowest(
+            state.frontier, donate_k, limit=n_don[me:me + 1]
+        )
+        record = torch.cat([d_masks[0], d_sols[0], d_depths[0][:, None]], dim=1)
+        if transfer_pad_words:
+            record = torch.cat(
+                [record, record.new_zeros((donate_k, transfer_pad_words))], dim=1
+            )
+        record = torch.where(d_valid[0][:, None], record, 0)  # (k, REC)
+        my_src = recv_from[me]
+        src = my_src.clamp(0, P - 1).long()
+        if transfer_impl == "gather":
+            got = mesh.all_gather(record[None])[src]  # (P, k, REC) -> my donor's
+            moved_words = P * donate_k * rec_words
+        else:
+            # unmatched donors write the spare row P, which is dropped
+            buf = record.new_zeros((P + 1, donate_k, rec_words))
+            tgt = torch.where(send_to[me] >= 0, send_to[me], P).long()
+            buf[tgt] = record
+            got = mesh.all_sum(buf[:P])[me]
+            moved_words = n_don.sum(dtype=torch.int32) * rec_words
+        ks = torch.arange(donate_k, device=record.device)
+        recv_valid = (my_src >= 0) & (ks < n_don[src])
+        f3 = push_many(
+            f2, got[None, :, :W], got[None, :, W:2 * W], got[None, :, 2 * W],
+            recv_valid[None],
+        )
+        state = state._replace(
+            frontier=f3,
+            tasks_sent=state.tasks_sent + n_don[me],
+            tasks_recv=state.tasks_recv + recv_valid.sum(dtype=torch.int32),
+            transfer_rounds=state.transfer_rounds + 1,
+            payload_words=state.payload_words + moved_words,
+        )
+    state = state._replace(rounds=state.rounds + 1)
+    done = mesh.all_sum(pending_per_worker(state.frontier)) == 0
+    return state, done
+
+
 # -- the chunk runners -----------------------------------------------------------
 
 
@@ -382,6 +489,7 @@ def build_batch_plane_fn(
     explore_impl: str = "fused",
     chunk_rounds: int = 16,
     use_fpt: bool = False,
+    mesh=None,
 ):
     """Batch chunk runner over (B, P, ...) lane state: ``(datas, worker,
     done[, fpt_bounds], counters=None) -> (worker, done, rounds_delta, ran,
@@ -395,7 +503,10 @@ def build_batch_plane_fn(
     count of the JAX ``while_loop`` (0 when every lane was done on entry).
     ``use_fpt`` also finishes a lane whose best reached its INTERNAL target
     ``fpt_bounds[b]``.  ``hot`` is the (B, P) pending count after the chunk.
-    ``counters`` (a :class:`WorkCounters`) tallies data-dependent work."""
+    ``counters`` (a :class:`WorkCounters`) tallies data-dependent work.
+    With a ``mesh`` the runner steps this rank's (1, 1, ...) block of one
+    instance through the mesh superstep; ``done`` is replicated, so every
+    rank runs the same supersteps."""
     if chunk_rounds < 1:
         raise ValueError(f"chunk_rounds must be >= 1, got {chunk_rounds}")
     _check_knobs(explore_impl, transfer_impl, donate_k)
@@ -411,6 +522,7 @@ def build_batch_plane_fn(
         transfer_impl=transfer_impl,
         donate_k=donate_k,
         explore_impl=explore_impl,
+        mesh=mesh,
     )
 
     def run(datas: ProblemData, worker: WorkerState, done, fpt_bounds=None,
@@ -461,6 +573,106 @@ def build_plane_fn(problem: BranchingProblem, **knobs):
             torch.zeros((1,), dtype=torch.bool, device=dev), bounds, counters,
         )
         return map_state(lambda x: x[0], worker), bool(done[0]), ran, hot[0]
+
+    return run
+
+
+def _check_workers(state: WorkerState, num_workers: int, mesh) -> None:
+    want = 1 if mesh is not None else num_workers
+    if mesh is not None and mesh.size != num_workers:
+        raise ValueError(
+            f"num_workers={num_workers} but the mesh has {mesh.size} ranks"
+        )
+    if state.best_val.shape[0] != want:
+        raise ValueError(
+            f"the state holds {state.best_val.shape[0]} workers, want {want}"
+            + (" (a mesh rank's block)" if mesh is not None else "")
+        )
+
+
+def build_superstep_fn(
+    problem: BranchingProblem,
+    data: ProblemData,
+    *,
+    num_workers: int,
+    steps_per_round: int,
+    lanes: int,
+    policy_priority: bool = True,
+    transfer_pad_words: int = 0,
+    packed_status: bool = True,
+    skip_empty_transfer: bool = True,
+    transfer_impl: str = "sparse",
+    donate_k: int = 1,
+    explore_impl: str = "reference",
+    mesh=None,
+):
+    """``state -> (state, done)``: one superstep of one instance, ``done``
+    a bool tensor; the port of JAX's ``build_superstep_fn``
+    (superstep.py:469), with its defaults.
+
+    ``mesh=None``: ``state`` is the whole (P, ...) state on one device.
+    ``mesh`` given (a :class:`~repro_torch.launch.mesh.SolverMesh` of
+    ``num_workers`` ranks): ``state`` is this rank's (1, ...) block
+    (``mesh.shard``), the superstep's center runs over the mesh's
+    collectives and ``done`` is the same on every rank; ``mesh.gather_state``
+    rebuilds the whole state.  Prefer :func:`build_chunk_fn` for solve
+    loops."""
+    _check_knobs(explore_impl, transfer_impl, donate_k)
+    step = functools.partial(
+        superstep, problem, data,
+        steps_per_round=steps_per_round, lanes=lanes,
+        policy_priority=policy_priority, transfer_pad_words=transfer_pad_words,
+        packed_status=packed_status, skip_empty_transfer=skip_empty_transfer,
+        transfer_impl=transfer_impl, donate_k=donate_k, explore_impl=explore_impl,
+        mesh=mesh,
+    )
+
+    def run(state: WorkerState):
+        _check_workers(state, num_workers, mesh)
+        state, done = step(state)
+        return state, done.all()
+
+    return run
+
+
+def build_chunk_fn(
+    problem: BranchingProblem,
+    data: ProblemData,
+    *,
+    num_workers: int,
+    steps_per_round: int,
+    lanes: int,
+    policy_priority: bool = True,
+    transfer_pad_words: int = 0,
+    packed_status: bool = True,
+    skip_empty_transfer: bool = True,
+    transfer_impl: str = "sparse",
+    donate_k: int = 1,
+    explore_impl: str = "reference",
+    chunk_rounds: int = 16,
+    fpt_bound=None,
+    mesh=None,
+):
+    """``state -> (state, done, ran, hot)``: up to ``chunk_rounds``
+    supersteps of one instance, ending early on quiescence or (FPT) when
+    the best value reaches the INTERNAL ``fpt_bound``; the port of JAX's
+    ``build_chunk_fn`` (superstep.py:1081), with its defaults.  ``done`` is
+    a host bool, ``ran`` the supersteps run, ``hot`` the pending counts.
+
+    ``mesh`` as in :func:`build_superstep_fn`: ``state`` and ``hot`` are
+    then this rank's (1, ...) block, and ``done``/``ran`` the same on every
+    rank (the host reads the replicated ``done`` each superstep)."""
+    plane = build_plane_fn(
+        problem, steps_per_round=steps_per_round, lanes=lanes,
+        policy_priority=policy_priority, transfer_pad_words=transfer_pad_words,
+        packed_status=packed_status, skip_empty_transfer=skip_empty_transfer,
+        transfer_impl=transfer_impl, donate_k=donate_k, explore_impl=explore_impl,
+        chunk_rounds=chunk_rounds, use_fpt=fpt_bound is not None, mesh=mesh,
+    )
+
+    def run(state: WorkerState):
+        _check_workers(state, num_workers, mesh)
+        return plane(data, state, fpt_bound)
 
     return run
 

@@ -20,6 +20,12 @@ same ``[solve] best=... rounds=...`` lines.  Several DIMACS files
 go to ``solve_many``, one batched plane per W bucket.  It runs on the card
 unless ``--device cpu`` asks for the CPU.
 
+``--use-mesh`` runs the spmd solve one worker a rank of a
+``torch.distributed`` group (:mod:`repro_torch.launch.mesh`): under
+``torchrun`` (``RANK``/``WORLD_SIZE`` set) each process joins that group;
+otherwise the command starts ``--workers`` ranks on this host itself.
+Rank 0 prints the lines, which equal the single-process solve's.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --graph gnp --n 600 \\
       --p 0.00668 --workers 128 --max-rounds 64
@@ -37,11 +43,16 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 48 \
       --p 0.28 --workers 4 --steps-per-round 2 --chunk-rounds 1 \
       --checkpoint-dir ck --chaos 8 --chaos-seed 3
+  PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --n 40 \\
+      --workers 4 --use-mesh                      # 4 gloo ranks on the CPU
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \\
+      --n 600 --p 0.00668 --workers 4 --use-mesh
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from repro_torch.graphs.generators import erdos_renyi, p_hat_like, parse_dimacs
@@ -91,6 +102,7 @@ CONFIG_FLAGS = {
     "explore": "explore_impl",
     "donate_k": "donate_k",
     "chunk_rounds": "chunk_rounds",
+    "use_mesh": "use_mesh",
     "mode": "mode",
     "k": "k",
     "latency": "latency",
@@ -142,7 +154,7 @@ def resume_solve(args):
     return res
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     S = argparse.SUPPRESS
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="gnp", choices=["gnp", "phat", "dimacs"])
@@ -180,6 +192,9 @@ def main(argv=None):
     ap.add_argument("--explore", default=S, choices=["fused", "reference"])
     ap.add_argument("--donate-k", type=int, default=S)
     ap.add_argument("--chunk-rounds", type=int, default=S)
+    ap.add_argument("--use-mesh", action="store_true", default=S,
+                    help="one worker a torch.distributed rank (spmd): joins "
+                         "the torchrun group, else starts --workers ranks")
     ap.add_argument("--mode", default=S, choices=["bnb", "fpt"])
     ap.add_argument("--k", type=int, default=S)
     ap.add_argument("--latency", type=int, default=S,
@@ -215,7 +230,68 @@ def main(argv=None):
                          "a fault-free run")
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="seed for the --chaos fault plan (default 0)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def _injector(args, cfg, backend, say):
+    """The ``--chaos`` injector (None without the flag)."""
+    if args.chaos is None:
+        return None
+    if backend.name != "spmd":
+        raise SystemExit("--chaos needs the spmd engine")
+    from repro_torch.faults import FaultInjector, FaultPlan
+
+    plan = FaultPlan.random(args.chaos_seed, n_events=args.chaos, lanes=cfg.lanes)
+    say(f"[solve] chaos: {args.chaos} seeded fault(s) "
+        f"(seed {args.chaos_seed}): {plan.counts()}")
+    return FaultInjector(plan)
+
+
+def _mesh_solve(mesh, argv):
+    """One rank of ``--use-mesh``: the command's solve, this rank's worker
+    on ``mesh``.  Returns (result, the injector's report or None)."""
+    from repro_torch.api import SolverSession, get_backend
+    from repro_torch.problems.registry import get_problem
+
+    args = _parser().parse_args(argv)
+    cfg = effective_config(args)
+    backend = get_backend(args.engine)
+    injector = _injector(args, cfg, backend, lambda _: None)
+    extra = {"injector": injector} if injector is not None else {}
+    session = SolverSession(problem=get_problem(args.problem), backend=backend,
+                            config=cfg, device=mesh.device)
+    r = session.solve(build_graph(args), mesh=mesh, **extra)
+    return r, (injector.report() if injector is not None else None)
+
+
+# the --use-mesh ranks' time limit when this command starts them: a bound
+# on a hung job, not on the solve
+MESH_TIMEOUT_S = 24 * 3600.0
+
+
+def _solve_on_mesh(args, argv, cfg):
+    """``--use-mesh``: (result, injector report) of rank 0, from the
+    torchrun group this process is a rank of, or from ``--workers`` ranks
+    started here."""
+    from repro_torch.launch import mesh as _mesh
+
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return _mesh.spawn_mesh(_mesh_solve, cfg.num_workers, device=args.device,
+                                timeout_s=MESH_TIMEOUT_S, args=(argv,))[0]
+    import torch.distributed as dist
+
+    dev = _mesh.rank_device(args.device)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    dist.init_process_group(_mesh.mesh_backend(dev, local))
+    try:
+        return _mesh_solve(_mesh.make_solver_mesh(cfg.num_workers, device=dev), argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
 
     if args.resume:
         return resume_solve(args)
@@ -229,32 +305,35 @@ def main(argv=None):
         backend = get_backend(args.engine)
     except ValueError as e:
         raise SystemExit(f"error: {e}")
+    on_mesh = cfg.use_mesh and backend.name == "spmd"
+    # under torchrun, rank 0 alone prints
+    quiet = on_mesh and int(os.environ.get("RANK", "0")) != 0
+
+    def say(line: str) -> None:
+        if not quiet:
+            print(line)
 
     if args.dump_config:
         if args.dump_config == "-":
-            sys.stdout.write(cfg.to_json())
-        else:
+            if not quiet:
+                sys.stdout.write(cfg.to_json())
+        elif not quiet:
             cfg.save(args.dump_config)
             print(f"[solve] effective config -> {args.dump_config}")
 
-    session = SolverSession(
-        problem=spec, backend=backend, config=cfg, device=args.device
-    )
-
-    injector = None
-    if args.chaos is not None:
-        if backend.name != "spmd":
-            raise SystemExit("--chaos needs the spmd engine")
-        from repro_torch.faults import FaultInjector, FaultPlan
-
-        plan = FaultPlan.random(args.chaos_seed, n_events=args.chaos, lanes=cfg.lanes)
-        injector = FaultInjector(plan)
-        print(f"[solve] chaos: {args.chaos} seeded fault(s) "
-              f"(seed {args.chaos_seed}): {plan.counts()}")
+    injector = _injector(args, cfg, backend, say)
     extra = {"injector": injector} if injector is not None else {}
 
     batch_graphs, batch_labels = build_graphs(args)
     if batch_graphs:
+        if cfg.use_mesh:
+            raise SystemExit(
+                "multi-instance mode has no mesh path yet (vmap virtual "
+                "workers only) — drop --use-mesh"
+            )
+        session = SolverSession(
+            problem=spec, backend=backend, config=cfg, device=args.device
+        )
         print(f"[solve] batch of {len(batch_graphs)} instances "
               f"[{spec.name}] on {backend.name}, "
               f"workers/instance={cfg.num_workers}")
@@ -272,9 +351,16 @@ def main(argv=None):
         return
 
     g = build_graph(args)
-    print(f"[solve] graph n={g.n} m={g.num_edges} engine={backend.name} "
-          f"problem={spec.name}")
-    r = session.solve(g, **extra)
+    say(f"[solve] graph n={g.n} m={g.num_edges} engine={backend.name} "
+        f"problem={spec.name}")
+    if on_mesh:
+        r, report = _solve_on_mesh(args, argv, cfg)
+    else:
+        session = SolverSession(
+            problem=spec, backend=backend, config=cfg, device=args.device
+        )
+        r = session.solve(g, **extra)
+        report = injector.report() if injector is not None else None
     line = (f"[solve] best={r.best_size} rounds={r.rounds} "
             f"nodes={r.nodes_expanded} transfers={r.tasks_transferred} "
             f"wall={r.wall_s:.2f}s")
@@ -297,9 +383,9 @@ def main(argv=None):
                  + (f" (center {s.center_bytes})"
                     f" failed_requests={s.failed_requests}"
                     if backend.name == "protocol_sim" else ""))
-    print(line)
-    if injector is not None:
-        print(f"[solve] chaos report: {injector.report()}")
+    say(line)
+    if report is not None:
+        say(f"[solve] chaos report: {report}")
 
 
 if __name__ == "__main__":

@@ -97,27 +97,39 @@ class WorkCounters:
     ``while_loop`` runs.  On the card each round's (T,) trip counts are kept
     as they are, so counting adds no launch and no sync to a round, and
     :meth:`flush`, which the plane runner calls after its own sync at the
-    end of a chunk, reduces them all at once."""
+    end of a chunk, reduces them all at once.
+
+    On a solver ``mesh`` (:class:`~repro_torch.launch.mesh.SolverMesh`) a
+    rank sees only its own worker's rows, so every rank keeps each round's
+    trip counts (on the CPU too) and :meth:`flush` takes the max over the
+    ranks of the chunk's per-round maxima in ONE collective, once a chunk:
+    the same count as the single-process solve's, the same on every rank.
+    Every rank runs the same explore rounds, so their lists line up."""
 
     reduce_sweeps: int = 0
+    mesh: object = dataclasses.field(default=None, repr=False, compare=False)
     _pending: list = dataclasses.field(default_factory=list, repr=False)
 
     def add_sweeps(self, sweeps: torch.Tensor) -> None:
         """Count one batch's reduction: ``sweeps`` (T,) int32 trip counts."""
         if sweeps.numel() == 0:
             return
-        if sweeps.device.type == "cpu":
+        if sweeps.device.type == "cpu" and self.mesh is None:
             self.reduce_sweeps += int(sweeps.max())
             return
         self._pending.append(sweeps)
 
     def flush(self) -> None:
-        """Fold the card's pending trip counts into ``reduce_sweeps``: each
-        round's maximum, summed, in one read.  Trip counts are at least 1, so
-        the zeros that pad shorter rounds change no maximum."""
+        """Fold the pending trip counts into ``reduce_sweeps``: each
+        round's maximum (over the mesh's ranks too), summed, in one read.
+        Trip counts are at least 1, so the zeros that pad shorter rounds
+        change no maximum."""
         if self._pending:
             rounds = torch.nn.utils.rnn.pad_sequence(self._pending, batch_first=True)
-            self.reduce_sweeps += int(rounds.amax(dim=1).sum())
+            maxima = rounds.amax(dim=1)
+            if self.mesh is not None:
+                maxima = self.mesh.all_max(maxima)
+            self.reduce_sweeps += int(maxima.sum())
             self._pending = []
 
 

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_mesh_jobs as jobs
 from _torch_parity import assert_flat_equal
 
 from repro.core import engine as JE
@@ -33,6 +34,7 @@ from repro_torch.api.backends import LEGACY_CACHE
 from repro_torch.core import engine as E
 from repro_torch.core import superstep as S
 from repro_torch.graphs.generators import erdos_renyi
+from repro_torch.launch.mesh import spawn_mesh
 from repro_torch.problems.base import make_data
 from repro_torch.problems.registry import get_problem
 from repro_torch.problems.sequential import solve_sequential
@@ -151,10 +153,17 @@ def test_legacy_solve_warns_and_accepts_compact_threshold():
         jr = JE.solve(jax_erdos_renyi(18, 0.3, 0), num_workers=4, steps_per_round=8)
     assert (r.best_size, r.rounds, r.nodes_expanded) == (jr.best_size, jr.rounds,
                                                          jr.nodes_expanded)
-    # a real mesh is the multi-device path, not ported yet
-    with pytest.warns(DeprecationWarning), pytest.raises(NotImplementedError,
-                                                         match="item 13"):
+    # a mesh must be a SolverMesh; one of 2 gloo ranks solves as one process
+    with pytest.warns(DeprecationWarning), pytest.raises(ValueError,
+                                                         match="SolverMesh"):
         E.solve(g, num_workers=4, mesh=object(), **CPU)
+    kw = dict(num_workers=2, steps_per_round=8)
+    ranks = spawn_mesh(jobs.legacy_solve, 2, device="cpu", timeout_s=300.0,
+                       args=(dict(n=18, p=0.3, seed=0), kw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        one = E.solve(g, **kw, **CPU)
+    assert ranks[0] == ranks[1] == {k: getattr(one, k) for k in ranks[0]}
 
 
 def test_legacy_solve_many_warns_and_accepts_mesh_none():

@@ -7,9 +7,9 @@
 * no source file under ``src/repro_torch``, and not ``chip_smoke.py``,
   imports them (AST scan);
 * ``SolverSession()`` with CUDA absent raises instead of running on the CPU;
-* what the port does not carry yet refuses with its ROADMAP item; fault
-  injection and the simulator backends, once refused, now run, the latter
-  equal to the JAX package's.
+* the features once refused now run: the mesh solve (2 gloo ranks), the
+  reference explore path, fault injection and the simulator backends, the
+  last equal to the JAX package's.
 """
 
 import ast
@@ -107,6 +107,7 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.bench.kernel_bench",
         "repro_torch.bench.check_regression",
         "repro_torch.examples.serve_lm",
+        "repro_torch.launch.mesh",
     ):
         assert name in report["modules"]
 
@@ -129,7 +130,8 @@ def test_sources_import_neither_jax_nor_repro():
                  "examples/quickstart.py", "examples/solve_dimacs.py",
                  "examples/serve_solver.py", "bench/run.py", "bench/speedup.py",
                  "bench/protocol_stats.py", "bench/encoding_bytes.py",
-                 "bench/balancer_bench.py", "bench/clique_smoke.py"):
+                 "bench/balancer_bench.py", "bench/clique_smoke.py",
+                 "launch/mesh.py"):
         assert PKG / name in files
     offenders = [
         (str(p.relative_to(ROOT)), root)
@@ -156,9 +158,16 @@ def test_unported_features_refuse():
     from repro_torch.graphs.generators import erdos_renyi
 
     g = erdos_renyi(12, 0.3, 0)
-    session = SolverSession(config=SolveConfig(num_workers=2, use_mesh=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        session.solve(g)
+    # the mesh is ported (item 13): a use_mesh solve on 2 gloo ranks equals
+    # the single-process one
+    import _torch_mesh_jobs as jobs
+    from repro_torch.launch.mesh import spawn_mesh
+
+    case = ("g", "vertex_cover", dict(n=12, p=0.3, seed=0), dict(num_workers=2))
+    ranks = spawn_mesh(jobs.solve_cases, 2, device="cpu", timeout_s=300.0, args=([case],))
+    want = jobs.result_dict(SolverSession(config=SolveConfig(num_workers=2),
+                                          device="cpu").solve(g))
+    assert ranks[0]["g"] == ranks[1]["g"] == want
     # the reference explore path is ported (item 3b): it solves, as the
     # fused one does
     ref, fused = (
