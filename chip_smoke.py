@@ -220,7 +220,32 @@ Phases (any failed check raises, so the exit code is not 0):
    single-process command's ``[solve]`` lines.  Each rank launches exactly
    one expansion kernel per explore round and nothing else; both walls per
    superstep and the collectives' ms per superstep are printed.  The
-   kernels line gives every rank's launches, summed, as ``mesh_launches``.
+   kernels line gives every rank's launches, summed, as ``mesh_launches``;
+18. MoE and VLM serving (run after phase 10) — (a) ``golden_lm.json``'s
+   qwen3-moe, llama4-scout and pixtral entries (JAX-made, f32 smoke configs,
+   pixtral's with seeded patch embeddings) reproduced through the kernel;
+   (b) qwen3-moe-235b-a22b (8 of its 94 layers: 128 experts top-8),
+   llama4-scout-17b-a16e (4 of 48: 16 experts top-1) and pixtral-12b
+   (uncut, 1,024 patch embeddings before the tokens) at full width in bf16
+   with the port's seeded init: ``flash_attention`` at each model's prefill
+   shape against its plain version, SDPA and its bound; ``moe_apply`` at the
+   prefill's and a decode step's shapes with CUDA's sync debug mode at
+   "error" (no host sync); a prefill of 4 prompts of 1,024 tokens, exactly
+   one tensor-core ``flash_attention`` launch per layer, and greedy decode
+   (the prompts' last 256 tokens walked into the cache, then 32 generated),
+   which launches nothing; per layer, the attention output
+   with the kernel against the plain op in f64, and the MoE layer's bf16
+   output against the same op in f64 over the tokens whose routing agrees
+   (the others counted); the whole bf16 forward held to the witness; the
+   share of dropped assignments in the prefill and in a decode step at the
+   configs' capacity; on the first 2 layers in f32, the kernel forward
+   against the plain one and decode against the forward, MoE at ample
+   capacity (cf = E/K, so C = T), sequences whose routing differs between
+   the two sides set aside and counted; for pixtral the bf16 decode path's
+   last prompt logits against a forward of the walked tokens alone.  Prints
+   prefill tok/s, ms a decode step and peak memory.  The kernels line gives
+   the prefills' launches as ``moe_vlm_launches`` and the attention times
+   at these shapes as ``moe_vlm_shapes``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -2915,10 +2940,10 @@ WITNESS_FACTOR = 2.0
 F32_REL_TOL = 1e-3
 F32_DECODE_PROMPT = 64
 # the bf16 decode path's logits at the last of the 1,024 prompt tokens against
-# the forward's, about twice the readings of an H100 (1.9% and 10.9%; a
-# decode fault -- a wrong position, cache slot or state -- gives errors of
-# order 1)
-BF16_DECODE_TOL = {"qwen1.5-0.5b": 0.04, "rwkv6-3b": 0.22}
+# the forward's, about twice the readings of an H100 (1.9% and 10.9%; pixtral's
+# at the last of phase 18's 256 walked tokens 2.1%; a decode fault -- a wrong
+# position, cache slot or state -- gives errors of order 1)
+BF16_DECODE_TOL = {"qwen1.5-0.5b": 0.04, "rwkv6-3b": 0.22, "pixtral-12b": 0.05}
 
 
 def _attn_inputs(c, dtype, dev, seed):
@@ -3120,27 +3145,36 @@ def phase_lm_kernels(dev) -> dict:
     return out
 
 
-def phase_golden_lm(dev) -> None:
-    """golden_lm.json (JAX-made, f32 smoke configs) through the kernels."""
+def phase_golden_lm(dev, families=("dense", "ssm")) -> None:
+    """golden_lm.json (JAX-made, f32 smoke configs) through the kernels: the
+    entries of the given families (phase 9 the dense and ssm ones, phase 18
+    the moe and vlm ones; a vlm entry's prefill carries its seeded patch
+    embeddings)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import counts
     from repro_torch.launch.serve_lm import greedy_decode
-    from repro_torch.models.convert import load_jax_params, numpy_params
+    from repro_torch.models.convert import load_jax_params, numpy_params, patch_embeds
     from repro_torch.models.registry import get_model
 
     golden = json.loads((ROOT / "src" / "repro_torch" / "data" / "golden_lm.json").read_text())
     for arch, run in golden.items():
         cfg = get_smoke_config(arch)
+        if cfg.family not in families:
+            continue
         model = get_model(cfg)
         params = load_jax_params(model.init(device=dev), numpy_params(cfg, run["weights_seed"]))
         rng = np.random.default_rng(run["prompt_seed"])
         toks = torch.from_numpy(
             rng.integers(0, cfg.vocab, (run["batch"], run["prompt_len"]))).to(dev)
+        batch = {"tokens": toks}
+        if "patch_seed" in run:
+            batch["patch_embeds"] = torch.from_numpy(
+                patch_embeds(cfg, run["batch"], run["patch_seed"])).to(dev)
         counts.reset()
-        logits = model.forward(params, {"tokens": toks})
+        logits = model.forward(params, batch)
         torch.cuda.synchronize()
         launches = counts.snapshot()
         # f32: attention runs on the CUDA-core variant
@@ -3163,7 +3197,8 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-PLAIN_ROUTE = {"dense": ("attn_impl", "blockwise"), "ssm": ("wkv_impl", "ref")}
+PLAIN_ROUTE = {"dense": ("attn_impl", "blockwise"), "moe": ("attn_impl", "blockwise"),
+               "vlm": ("attn_impl", "blockwise"), "ssm": ("wkv_impl", "ref")}
 
 
 def _wkv6_f64(r, k, v, decay, u, initial_state=None, *, impl):
@@ -3211,12 +3246,14 @@ def _route(cfg, route):
             yield {key: plain}
 
 
-def _forward(cfg, params, toks, route):
+def _forward(cfg, params, toks, route, extra=None):
+    """The forward's logits on ``route``; ``extra``: a vlm's patch prefix."""
     from repro_torch.models import rwkv6, transformer
 
-    fwd = rwkv6.forward if cfg.family == "ssm" else transformer.forward
     with _route(cfg, route) as kw:
-        return fwd(params, toks, **kw)
+        if cfg.family == "ssm":
+            return rwkv6.forward(params, toks, **kw)
+        return transformer.forward(params, toks, extra_embeds=extra, **kw)
 
 
 def _layer_h(cfg, params, toks) -> dict:
@@ -3247,19 +3284,22 @@ def _layer_h(cfg, params, toks) -> dict:
             if cfg.family == "ssm":
                 x, _ = rwkv6.block_apply(cfg, bp, x)
             else:
-                x, _ = transformer.block_apply(cfg, bp, x, positions)
+                x, _, _ = transformer.block_apply(cfg, bp, x, positions)
     return worst
 
 
-def _f32_copy(cfg, params, dev):
-    """The same weights in an f32 model of the same config."""
+def _f32_copy(cfg, params, dev, layers=None):
+    """The same weights in an f32 model of the same config, or of its first
+    ``layers`` layers."""
     import dataclasses
 
     from repro_torch.models.registry import get_model
 
-    model = get_model(dataclasses.replace(cfg, dtype="float32"))
+    n = cfg.n_layers if layers is None else layers
+    model = get_model(dataclasses.replace(cfg, dtype="float32", n_layers=n))
     copy = model.init(device="meta").to_empty(device=dev)
-    copy.load_state_dict(params.state_dict())
+    copy.load_state_dict({k: v for k, v in params.state_dict().items()
+                          if not k.startswith("blocks.") or int(k.split(".")[1]) < n})
     return model, copy
 
 
@@ -3371,6 +3411,412 @@ def phase_serve_lm(dev) -> dict:
         del params32, model32
         torch.cuda.empty_cache()
     return main_launches
+
+
+# -- MoE and VLM serving (phase 18) -----------------------------------------------
+
+# full width, bf16, seeded init; depth cut where one card cannot hold the model:
+# qwen3-moe-235b-a22b is ~470 GB in bf16 (its expert bank 4.83 GB a layer), 8
+# layers ~42 GB; llama4-scout-17b-a16e ~218 GB (4.03 GB a layer), 4 layers ~21 GB;
+# pixtral-12b ~24.5 GB, uncut
+MOE_VLM = (("qwen3-moe-235b-a22b", 8), ("llama4-scout-17b-a16e", 4), ("pixtral-12b", None))
+# the f32 checks run on the first layers only: an f32 copy of the 8 qwen3-moe
+# layers would be ~80 GB
+MOE_VLM_F32_LAYERS = 2
+# The MoE layer in bf16, fed a bf16 input y, against two f64 twins.  (1) The
+# op's arithmetic in f64 rounded to bf16 at each of its own rounding points
+# (the same f32 routing): only the products' accumulation differs, so they
+# agree within one bf16 step.  (2) The op wholly in f64 (routing too), over
+# the tokens whose top-k set and kept experts agree (the others counted): the
+# bf16 op rounds each element 5 + K times in series (the w1 and w3 products,
+# silu, their product, the w2 product, the router weight's product, K - 1
+# additions), each an independent relative error of rms 2^-9/sqrt(3), so
+# twice sqrt(5 + K) bf16 half-steps.  On the CPU at d 4096, f 1536, top-8 it
+# read 0.0059 (tolerance 0.0141); d 5120, f 8192, top-1 0.0039 (0.0096)
+MOE_H_TOL = 2.0**-8
+MOE_EXACT_TOL = lambda K: 2.0 * (5 + K) ** 0.5 * 2.0**-9
+# decode steps whose MoE calls give the drop share of a decode step
+DROP_DECODE_STEPS = 16
+# greedy decode walks the last DECODE_WALK prompt tokens into the cache, then
+# generates: a cut of the walk's length (1,024 in phase 10), not of any width.
+# A step's cost does not depend on it (the cached attention reads under 0.1%
+# of a step's bytes); walking all 1,024 took 65 s for pixtral alone (61.6 ms a
+# host-bound step on an H100 80GB HBM3 at 700 W)
+DECODE_WALK = 256
+
+
+def _attn_at(cfg, B, S, dev, seed) -> dict:
+    """flash_attention at a model's prefill shape, bf16: within one bf16 step
+    of its plain version and SDPA's agreement, then the kernel, the plain
+    version and SDPA timed, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import variant_for
+    from repro_torch.launch.timing import time_ms
+
+    check(cfg.window is None, f"{cfg.name}: SDPA's causal mask has no window")
+    c = dict(B=B, Sq=S, Sk=S, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, D=cfg.d_head,
+             causal=True, window=None)
+    q, k, v = _attn_inputs(c, torch.bfloat16, dev, seed)
+    check(variant_for(q, k, v) == "tensor_core", f"{cfg.name}: attention not on tensor cores")
+    got = flash_attention(q, k, v, causal=True).float()
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6).all()),
+          f"flash_attention at {c}: more than one bf16 step from the plain version ({err})")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    e_lib = float((library().transpose(1, 2).float() - got).abs().max())
+    check(e_lib < ATTN_TOL["bfloat16"], f"scaled_dot_product_attention disagrees at {c}: {e_lib}")
+    del got, want, diff
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), n=10, runs=3,
+                       warmup=2)
+    library_ms = time_ms(library)
+    moved, flops = _attn_work(c, 2)
+    bound, by = _bound_ms(moved, 0)
+    if flops / PEAK_BF16_FLOPS * 1e3 > bound:
+        bound, by = flops / PEAK_BF16_FLOPS * 1e3, "operations"
+    print(f"[smoke] flash_attention at {cfg.name}'s prefill (B {B}, S {S}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, causal, bf16): kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, SDPA {library_ms:.6f} ms (agrees within {e_lib:.3g}), bound "
+          f"{bound:.6f} ms ({by}: {moved} B, {flops} FLOP); max abs err vs plain {err:.3g}")
+    return {"model": cfg.name, "shape": c, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+
+
+def _no_host_sync(cfg, bp, dev, B, S) -> None:
+    """moe_apply at (B, S) tokens under CUDA's sync debug mode "error": any
+    operation that waits for the card raises."""
+    import torch
+
+    from repro_torch.models import moe
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    y = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_apply(cfg, bp.moe, y)
+    except RuntimeError as e:
+        fail(f"{cfg.name}: moe_apply at ({B}, {S}) synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _moe_rounded_f64(cfg, p, y):
+    """moe_apply's arithmetic in f64, rounded to y's dtype wherever the op
+    rounds: its own routing (``moe.route``, f32), the expert products in f64
+    each rounded, silu and the gate product rounded, the router weight cast to
+    y's dtype and the product rounded, each token's K contributions added in
+    ascending expert order with each sum rounded."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    B, S, d = y.shape
+    E, K, T = cfg.n_experts, cfg.top_k, B * S
+    rnd = lambda t: t.to(y.dtype).double()
+    r = moe.route(cfg, p, y)
+    C = r["C"]
+    buf = y.new_zeros((E * C + 1, d))
+    buf[r["slot"]] = y.reshape(T, d)[r["st"]]
+    xe = buf[: E * C].view(E, C, d).double()
+    g = rnd(torch.bmm(xe, p.w1.double()))
+    u = rnd(torch.bmm(xe, p.w3.double()))
+    out = rnd(torch.bmm(rnd(rnd(F.silu(g)) * u), p.w2.double())).view(E * C, d)
+    del g, u, xe
+    contrib = rnd(out[r["slot"].clamp(max=E * C - 1)] * rnd(r["sp"])[:, None])
+    contrib = torch.where(r["keep"][:, None], contrib, contrib.new_zeros(()))
+    rank = torch.empty_like(r["order"])
+    rank[r["order"]] = torch.arange(T * K, device=y.device)
+    rows = rank.view(T, K).sort(dim=-1).values
+    out = contrib[rows[:, 0]]
+    for k in range(1, K):
+        out = rnd(out + contrib[rows[:, k]])
+    return out.view(B, S, d)
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Records, for every ``moe.route`` call while open, the sorted top-k set
+    and the sorted kept experts (dropped ones as E) of each token, on the card,
+    and the dropped assignments."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models import moe
+
+    log = []
+    route = moe.route
+
+    def watched(cfg, p, x):
+        r = route(cfg, p, x)
+        kept = torch.where(moe.keep_by_token(r), r["top_e"], cfg.n_experts)
+        log.append(dict(top=r["top_e"].sort(-1).values, kept=kept.sort(-1).values,
+                        dropped=(~r["keep"]).sum(), assignments=r["keep"].numel()))
+        return r
+
+    with mock.patch.object(moe, "route", watched):
+        yield log
+
+
+def _routing_by_layer(log, layers: int, B: int, S: int):
+    """A log's calls as (layers, B, S, 2K) routing rows: a forward's calls are
+    its layers; a run of decode steps' calls are step-major."""
+    import torch
+
+    rows = [torch.cat([c["top"], c["kept"]], -1) for c in log]
+    if len(rows) == layers:
+        return torch.stack([r.view(B, S, -1) for r in rows])
+    steps = torch.stack(rows).view(S, layers, B, -1)
+    return steps.permute(1, 2, 0, 3)
+
+
+def _agreeing_sequences(a, b):
+    """(B,) mask: sequences whose every token in every layer has the same
+    top-k set and kept experts in both routing tensors."""
+    return (a == b).all(-1).all(-1).all(0)
+
+
+def _moe_vlm_layers(cfg, params, toks, extra) -> tuple:
+    """Per layer, fed the kernel route's input: the attention output h of the
+    three routes (as ``_layer_h``), and for MoE the layer's bf16 output against
+    the same op in f64, over the tokens whose top-k set and kept experts agree.
+    Returns (the largest attention ||a - b|| / ||b|| by pair of routes, the MoE
+    statistics: the largest relative gap to the rounded f64 twin and to the
+    exact one, tokens whose top-k set flipped, whose kept experts differ only,
+    tokens compared, and the prefill's dropped and total assignments)."""
+    import types
+
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, transformer
+
+    pairs = (("kernel", "f64"), ("kernel", "plain"), ("f64", "plain"))
+    worst = {f"{a}/{b}": 0.0 for a, b in pairs}
+    st = dict(moe_rounded=0.0, moe_rel=0.0, flipped=0, keep_differs=0, compared=0, dropped=0, assignments=0)
+    d = cfg.d_model
+    with torch.no_grad():
+        x = params.embed[toks].to(L.torch_dtype(cfg))
+        if extra is not None:
+            x = torch.cat([extra.to(x.dtype), x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for bp in params.blocks:
+            xn = L.rmsnorm(x, bp.ln1, cfg.norm_eps)
+            h = {}
+            for route in ("kernel", "plain", "f64"):
+                with _route(cfg, route) as kw:
+                    h[route] = L.attention_apply(cfg, bp.attn, xn, positions, **kw)[0]
+            for a, b in pairs:
+                worst[f"{a}/{b}"] = max(worst[f"{a}/{b}"], _rel(h[a], h[b]))
+            if cfg.is_moe:
+                y = L.rmsnorm(x + h["kernel"], bp.ln2, cfg.norm_eps)
+                p64 = types.SimpleNamespace(**{n: getattr(bp.moe, n).double()
+                                               for n in ("router", "w1", "w3", "w2")})
+                with _routing_log() as log:
+                    out = moe.moe_apply(cfg, bp.moe, y)[0].reshape(-1, d)
+                    out64 = moe.moe_apply(cfg, p64, y.double())[0].reshape(-1, d)
+                del p64
+                a, b = log
+                same_set = (a["top"] == b["top"]).all(-1)
+                agree = same_set & (a["kept"] == b["kept"]).all(-1)
+                st["flipped"] += int((~same_set).sum())
+                st["keep_differs"] += int((same_set & ~agree).sum())
+                st["compared"] += int(agree.sum())
+                st["dropped"] += int(a["dropped"])
+                st["assignments"] += a["assignments"]
+                st["moe_rel"] = max(st["moe_rel"], _rel(out[agree], out64[agree]))
+                del out64, a, b, log
+                twin = _moe_rounded_f64(cfg, bp.moe, y).reshape(-1, d)
+                st["moe_rounded"] = max(st["moe_rounded"], _rel(out, twin))
+                del out, twin
+            x, _, _ = transformer.block_apply(cfg, bp, x, positions)
+    return worst, st
+
+
+def phase_moe_vlm(dev) -> dict:
+    """(a) the MoE and VLM goldens; (b) qwen3-moe, llama4-scout and pixtral at
+    full width, bf16: prefill and greedy decode, then the checks.  Returns the
+    prefills' tensor-core attention launches, the attention times at these
+    shapes and each model's readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts
+    from repro_torch.launch.serve_lm import greedy_decode
+    from repro_torch.models import moe
+    from repro_torch.models.convert import patch_embeds
+    from repro_torch.models.registry import get_model
+
+    phase_golden_lm(dev, families=("moe", "vlm"))
+    B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    kernel = "flash_attention.tensor_core"
+    out = {"launches": 0, "attention": [], "models": {}}
+    for i, (arch, layers) in enumerate(MOE_VLM):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(SERVE["seed"]), dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        toks = torch.from_numpy(
+            np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (B, P))).to(dev)
+        extra = None
+        batch = {"tokens": toks}
+        if cfg.family == "vlm":
+            extra = torch.from_numpy(patch_embeds(cfg, B, SERVE["seed"])).to(dev)
+            batch["patch_embeds"] = extra
+        S = P + (cfg.n_patches if extra is not None else 0)
+        out["attention"].append(_attn_at(cfg, B, S, dev, 500 + i))
+        if cfg.is_moe:
+            for shape in ((B, P), (B, 1)):
+                _no_host_sync(cfg, params.blocks[0], dev, *shape)
+        model.forward(params, batch)  # warm-up: cuBLAS and kernel loads
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        # the serving path: prefill, then greedy decode, launches counted
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        t0 = time.perf_counter()
+        logits = model.forward(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = counts.snapshot()
+        walk = toks[:, -DECODE_WALK:]
+        t0 = time.perf_counter()
+        gen_toks, prompt_logits = greedy_decode(model, params, walk, gen)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = counts.snapshot()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(prefill_launches == {kernel: cfg.n_layers},
+              f"{arch}: prefill launches {prefill_launches}, want {cfg.n_layers} {kernel}")
+        check(launches == prefill_launches, f"{arch}: decode launched {launches}")
+        out["launches"] += launches[kernel]
+        check(tuple(gen_toks.shape) == (B, gen) and tuple(logits.shape) == (B, S, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch}: generated {tuple(gen_toks.shape)}, logits {tuple(logits.shape)}")
+        n_steps = walk.shape[1] + gen
+        step_ms = 1e3 * decode_s / n_steps
+        line = (f"[smoke] serve {cfg.name} ({cfg.n_layers} layers, {n_params} params, bf16): "
+                f"prefill {B}x{S} in {prefill_s:.6f} s = {B * S / prefill_s:.1f} tok/s; greedy "
+                f"decode {walk.shape[1]}+{gen} steps in {decode_s:.3f} s = {step_ms:.3f} ms/step, "
+                f"{B * n_steps / decode_s:.1f} tok/s; peak memory {peak_gb:.3f} GB; set-up "
+                f"{setup_s:.3f} s; launches {launches}")
+        rec = dict(layers=cfg.n_layers, prefill_tok_s=B * S / prefill_s, decode_ms=step_ms,
+                   peak_gb=peak_gb)
+        if cfg.is_moe:
+            cache = model.init_decode_cache(B, DROP_DECODE_STEPS, device=dev)
+            with _routing_log() as log:
+                for t in range(DROP_DECODE_STEPS):
+                    model.decode_fn(params, cache, toks[:, t : t + 1])
+            rec["decode_drop_share"] = (sum(int(c["dropped"]) for c in log)
+                                        / sum(c["assignments"] for c in log))
+            line += (f"; capacity C {moe.capacity(cfg, B * P)} in the prefill, "
+                     f"{moe.capacity(cfg, B)} in a decode step")
+        print(line)
+
+        t0 = time.perf_counter()
+        e_h, st = _moe_vlm_layers(cfg, params, toks, extra)
+        check(e_h["kernel/f64"] < SERVE_H_TOL,
+              f"{arch}: a layer's attention h, kernel vs f64 route {e_h['kernel/f64']}")
+        fwd = {"kernel": logits, "plain": _forward(cfg, params, toks, "plain", extra),
+               "f64": _forward(cfg, params, toks, "f64", extra)}
+        e_fwd = {f"{a}/{b}": _rel(fwd[a], fwd[b]) for a, b in (
+            ("kernel", "plain"), ("f64", "plain"), ("kernel", "f64"))}
+        check(e_fwd["kernel/f64"] <= WITNESS_FACTOR * e_fwd["f64/plain"],
+              f"{arch}: bf16 forward, kernel vs f64 route {e_fwd['kernel/f64']} > "
+              f"{WITNESS_FACTOR} x plain vs f64 route {e_fwd['f64/plain']}")
+        del logits, fwd
+        fmt = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
+        line = (f"[smoke] {cfg.name} checks: the layers' attention h (bf16), largest of "
+                f"{fmt(e_h)}; whole bf16 forwards {fmt(e_fwd)}")
+        if cfg.is_moe:
+            check(st["moe_rounded"] < MOE_H_TOL,
+                  f"{arch}: MoE layer, bf16 vs the f64 op rounded where it rounds "
+                  f"{st['moe_rounded']}")
+            check(st["compared"] > 0 and st["moe_rel"] < MOE_EXACT_TOL(cfg.top_k),
+                  f"{arch}: MoE layer, bf16 vs f64 over agreeing tokens {st['moe_rel']}")
+            rec["prefill_drop_share"] = st["dropped"] / st["assignments"]
+            rec.update(moe_rounded=st["moe_rounded"], moe_exact=st["moe_rel"],
+                       flipped=st["flipped"])
+            line += (f"; MoE layers bf16 vs the f64 op rounded where it rounds: largest "
+                     f"{st['moe_rounded']:.4g} (< {MOE_H_TOL:.4g}); vs the exact f64 op: largest "
+                     f"{st['moe_rel']:.4g} (< {MOE_EXACT_TOL(cfg.top_k):.4g}) over "
+                     f"{st['compared']} of {B * S * cfg.n_layers} token-layers, top-k set "
+                     f"flipped {st['flipped']}, kept experts differ {st['keep_differs']}; "
+                     f"dropped assignments at cf {cfg.capacity_factor}: prefill "
+                     f"{st['dropped']} of {st['assignments']} = {rec['prefill_drop_share']:.6f}, "
+                     f"decode steps {rec['decode_drop_share']:.6f}")
+        else:  # decode sees the tokens only: against a forward of the walked tokens
+            e_dec = _rel(prompt_logits, model.forward(params, {"tokens": walk})[:, -1])
+            rec["bf16_decode"] = e_dec
+            check(e_dec < BF16_DECODE_TOL[arch],
+                  f"{arch}: bf16 decode vs a forward of the tokens at the last one {e_dec}")
+            line += f"; bf16 decode vs forward of the {walk.shape[1]} tokens at the last {e_dec:.4g}"
+        del prompt_logits
+
+        # f32 on the first layers (TF32 off): kernel vs plain forward, decode
+        # vs forward; MoE at ample capacity, C = T (no assignment drops)
+        model32, params32 = _f32_copy(cfg, params, dev, layers=MOE_VLM_F32_LAYERS)
+        del params
+        torch.cuda.empty_cache()
+        c32 = model32.cfg
+        if cfg.is_moe:
+            c32 = dataclasses.replace(c32, capacity_factor=c32.n_experts / c32.top_k)
+            for T in (B * P, B * F32_DECODE_PROMPT, B):
+                check(moe.capacity(c32, T) == T, f"{arch}: ample capacity at T {T}")
+            params32.cfg = c32
+        n = MOE_VLM_F32_LAYERS
+        with _routing_log() as log_k:
+            f_k = _forward(c32, params32, toks, "kernel", extra)
+        with _routing_log() as log_p:
+            f_p = _forward(c32, params32, toks, "plain", extra)
+        keep = torch.ones(B, dtype=torch.bool, device=dev)
+        if cfg.is_moe:
+            keep = _agreeing_sequences(_routing_by_layer(log_k, n, B, P),
+                                       _routing_by_layer(log_p, n, B, P))
+        check(bool(keep.any()), f"{arch}: f32 routing differs in every sequence")
+        e_f32_fwd = _rel(f_k[keep], f_p[keep])
+        check(e_f32_fwd < F32_REL_TOL, f"{arch}: f32 forward, kernel vs plain {e_f32_fwd}")
+        del f_k, f_p, log_k, log_p
+        short = toks[:, :F32_DECODE_PROMPT]
+        with _routing_log() as log_f:
+            full32 = model32.forward(params32, {"tokens": short})
+        cache = model32.init_decode_cache(B, short.shape[1], device=dev)
+        with _routing_log() as log_d:
+            steps = torch.cat([model32.decode_fn(params32, cache, short[:, t : t + 1])[0]
+                               for t in range(short.shape[1])], 1)
+        same = torch.ones(B, dtype=torch.bool, device=dev)
+        if cfg.is_moe:
+            same = _agreeing_sequences(_routing_by_layer(log_f, n, B, F32_DECODE_PROMPT),
+                                       _routing_by_layer(log_d, n, B, F32_DECODE_PROMPT))
+        check(bool(same.any()), f"{arch}: f32 decode routing differs in every sequence")
+        e_f32_decode = _rel(steps[same], full32[same])
+        check(e_f32_decode < F32_REL_TOL, f"{arch}: f32 decode vs forward {e_f32_decode}")
+        rec.update(f32_forward=e_f32_fwd, f32_decode=e_f32_decode)
+        line += (f"; f32 on the first {n} layers{' at cf E/K' if cfg.is_moe else ''}: forward "
+                 f"kernel/plain {e_f32_fwd:.4g} over {int(keep.sum())} of {B} sequences, decode "
+                 f"vs forward over {F32_DECODE_PROMPT} tokens {e_f32_decode:.4g} over "
+                 f"{int(same.sum())} of {B}; {time.perf_counter() - t0:.3f} s")
+        print(line)
+        out["models"][cfg.name] = rec
+        del params32, model32, full32, steps, cache
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -3522,6 +3968,15 @@ def main() -> None:
           "the serving path launched no tensor-core flash_attention kernel")
     kernels["wkv6"]["launches"] = serving.get("wkv6", 0)
     check(kernels["wkv6"]["launches"] > 0, "the serving path launched no wkv6 kernel")
+    # and the MoE and VLM prefills its second path
+    moe_vlm = timed("moe_vlm", phase_moe_vlm, dev)
+    attn["moe_vlm_launches"] = moe_vlm["launches"]
+    attn["moe_vlm_path"] = (
+        "prefills of qwen3-moe-235b-a22b (8 of 94 layers), llama4-scout-17b-a16e (4 of 48) and "
+        "pixtral-12b (40, 1,024 patches + 1,024 tokens), bf16, 4 prompts each, phase 18")
+    attn["moe_vlm_shapes"] = moe_vlm["attention"]
+    check(attn["moe_vlm_launches"] == sum(n or 40 for _, n in MOE_VLM),
+          f"phase 18 launched {attn['moe_vlm_launches']} tensor-core flash_attention")
 
     print(f"[smoke] phase walls (s): {walls}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,19 +1,27 @@
 """Where LM serving's time goes on the card, at full width.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_lm [--arch rwkv6-3b]
+  PYTHONPATH=src python -m repro_torch.launch.profile_lm --arch qwen3-moe-235b-a22b --layers 8
 
-Builds the arch at full width in bf16 with the port's seeded init, warms up,
-then runs under ``torch.profiler`` one prefill of ``--batch`` prompts of
-``--prompt-len`` tokens and ``--steps`` greedy decode steps after the
-prompt: rwkv6's state comes from one multi-token ``decode_fn`` over it; the
-dense cache is only set to the prompt's length (a step attends over the
-whole cache buffer whatever it holds, so its cost does not depend on the
-values).  Prints, for the prefill and for the decode steps:
+Builds the arch at full width in bf16 with the port's seeded init (``--layers
+N`` cuts depth, every width kept), warms up, then runs under
+``torch.profiler`` one prefill of ``--batch`` prompts of ``--prompt-len``
+tokens (a VLM's after its seeded patch prefix) and ``--steps`` greedy decode
+steps after the prompt: rwkv6's state comes from one multi-token
+``decode_fn`` over it; the transformer's cache is only set to the prompt's
+length (a step attends over the whole cache buffer whatever it holds, so its
+cost does not depend on the values).  Prints, for the prefill and for the
+decode steps:
 
 * wall time, device busy time (the union of kernel, copy and memset
   intervals in the trace), the device's idle share, and device events and
   host ops (the trace's ``cpu_op`` events) per step;
 * device time and launch count by kernel name, largest first;
+* for MoE, the MoE layers' device time split by their profiler ranges
+  (``moe.route``: router, softmax, top-k, the sort and positions;
+  ``moe.dispatch``; ``moe.experts``: the three ``bmm`` and the SwiGLU;
+  ``moe.combine``), each device event given to the range its launch was
+  issued in;
 * the hand-written kernels' launches.
 
 The traces go to ``--trace-dir`` (default ``build/repro_torch_profile/``).
@@ -23,7 +31,9 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -33,8 +43,47 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import counts
-from repro_torch.launch.profile import _device_intervals, _union_us
+from repro_torch.launch.profile import DEVICE_CATS, _device_intervals, _union_us
+from repro_torch.models.convert import patch_embeds
 from repro_torch.models.registry import get_model
+
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _range_split(trace: Path) -> dict:
+    """Device ms by the MoE profiler range (``record_function``) that issued
+    each device event, matched through the launch's correlation id; events
+    issued outside every such range go to "other"."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation" and e["name"] in MOE_RANGES)
+    starts = [s for s, _, _ in spans]
+    issued = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ms = collections.Counter()
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS or "dur" not in e:
+            continue
+        ts = issued.get(e.get("args", {}).get("correlation"))
+        name = "other"
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and spans[i][0] <= ts <= spans[i][1]:
+                name = spans[i][2]
+        ms[name] += e["dur"] / 1e3
+    return dict(ms)
+
+
+def _print_split(label: str, split: dict, per: int) -> None:
+    total = sum(split.values()) or 1.0
+    moe_ms = sum(split.get(n, 0.0) for n in MOE_RANGES) or 1.0
+    print(f"[profile_lm] {label}: device time by MoE range (ms per step, share of the MoE "
+          f"layers, share of all device time):")
+    for name in (*MOE_RANGES, "other"):
+        v = split.get(name, 0.0)
+        print(f"[profile_lm]   {name:13s} {v / per:10.3f}  "
+              f"{(v / moe_ms if name != 'other' else float('nan')):6.3f}  {v / total:6.3f}")
 
 
 def _report(label: str, prof, trace: Path, wall_s: float, top: int, per: int) -> None:
@@ -60,6 +109,8 @@ def _report(label: str, prof, trace: Path, wall_s: float, top: int, per: int) ->
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut depth to N layers, every width kept")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=8, help="profiled decode steps")
@@ -72,27 +123,36 @@ def main(argv=None) -> None:
         raise SystemExit("profile_lm: needs a CUDA device")
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = get_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
     B, P = args.batch, args.prompt_len
     toks = torch.from_numpy(
         np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, P))).to(dev)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(patch_embeds(cfg, B, args.seed)).to(dev)
     trace_dir = Path(args.trace_dir)
     trace_dir.mkdir(parents=True, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    print(f"[profile_lm] {torch.cuda.get_device_name(0)}; {cfg.name} bf16, "
-          f"{sum(p.numel() for p in params.parameters())} params, B={B}, P={P}")
+    print(f"[profile_lm] {torch.cuda.get_device_name(0)}; {cfg.name} bf16, {cfg.n_layers} "
+          f"layers, {sum(p.numel() for p in params.parameters())} params, B={B}, P={P}"
+          + (f" after {cfg.n_patches} patches" if cfg.family == "vlm" else ""))
 
-    model.forward(params, {"tokens": toks})  # warm-up
+    model.forward(params, batch)  # warm-up
     torch.cuda.synchronize()
     counts.reset()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits = model.forward(params, {"tokens": toks})
+        logits = model.forward(params, batch)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     print(f"[profile_lm] prefill launches {counts.snapshot()}")
-    _report("prefill", prof, trace_dir / f"{cfg.name}_prefill.json", wall_s, args.top, 1)
+    trace = trace_dir / f"{cfg.name}_prefill.json"
+    _report("prefill", prof, trace, wall_s, args.top, 1)
+    if cfg.is_moe:
+        _print_split("prefill", _range_split(trace), 1)
 
     # a cache holding the prompt, then greedy steps
     cache = model.init_decode_cache(B, P + args.steps + 2, device=dev)
@@ -114,8 +174,10 @@ def main(argv=None) -> None:
         wall_s = time.perf_counter() - t0
     print(f"[profile_lm] decode launches {counts.snapshot()}; "
           f"{1e3 * wall_s / args.steps:.3f} ms a step under the profiler")
-    _report(f"{args.steps} decode steps", prof, trace_dir / f"{cfg.name}_decode.json",
-            wall_s, args.top, args.steps)
+    trace = trace_dir / f"{cfg.name}_decode.json"
+    _report(f"{args.steps} decode steps", prof, trace, wall_s, args.top, args.steps)
+    if cfg.is_moe:
+        _print_split(f"{args.steps} decode steps", _range_split(trace), args.steps)
 
 
 if __name__ == "__main__":

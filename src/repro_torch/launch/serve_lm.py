@@ -3,15 +3,24 @@
 The port of the JAX package's ``examples/serve_lm.py`` decode path:
 ``greedy_decode`` fills the decode cache token by token over the prompt,
 then takes ``gen`` tokens by argmax, as the example does; before it, the
-prefill runs ``Model.forward`` over the whole batch of prompts.  Weights are
-the port's seeded init (no weights exist in the repo).  It runs on the card
-unless ``--device cpu`` asks for the CPU, and raises without CUDA.  The
-example's balancer demonstration is in its twin,
+prefill runs ``Model.forward`` over the whole batch of prompts.  A VLM
+prompt (pixtral) carries seeded stub patch embeddings (B, n_patches, d)
+before its tokens in the prefill; decode sees the tokens only, as JAX's
+``decode_fn`` takes no patch prefix.  Weights are the port's seeded init (no
+weights exist in the repo).  ``--layers N`` cuts depth and leaves every
+width alone (JAX's ``launch/dryrun.py`` cuts depth the same way): a
+full-width qwen3-moe-235b-a22b is ~470 GB in bf16, 8 of its 94 layers ~42
+GB.  It runs on the card unless ``--device cpu`` asks for the CPU, and
+raises without CUDA.  The example's balancer demonstration is in its twin,
 ``repro_torch.examples.serve_lm``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_lm                 # qwen1.5-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch rwkv6-3b \\
+      --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-moe-235b-a22b \\
+      --layers 8 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch pixtral-12b \\
       --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --smoke --device cpu
 """
@@ -19,6 +28,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -26,6 +36,7 @@ import torch
 
 from repro_torch.api.session import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models.convert import patch_embeds
 from repro_torch.models.registry import get_model
 
 
@@ -56,9 +67,12 @@ def _sync(device: torch.device) -> None:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b",
-                    help="a dense or ssm arch id or alias (qwen1.5-0.5b, rwkv6-3b, ...)")
+                    help="a dense, moe, vlm or ssm arch id or alias (qwen1.5-0.5b, "
+                         "rwkv6-3b, qwen3-moe-235b-a22b, pixtral-12b, ...)")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's smoke config (reduced widths, f32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut depth to N layers, every width kept")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--gen", type=int, default=24)
@@ -70,21 +84,27 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = get_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed), device)
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
     ).to(device)
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            patch_embeds(cfg, args.batch, args.seed)).to(device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits = model.forward(params, {"tokens": prompts})
+    logits = model.forward(params, batch)
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    n_prompt = args.batch * args.prompt_len
-    print(f"[serve_lm] {cfg.name} on {device}: prefill {tuple(prompts.shape)} in "
-          f"{prefill_s:.3f}s ({n_prompt / prefill_s:.1f} tok/s)")
+    shape = tuple(logits.shape[:2])  # positions: the patch prefix, then the tokens
+    print(f"[serve_lm] {cfg.name} on {device}: prefill {shape} in "
+          f"{prefill_s:.3f}s ({shape[0] * shape[1] / prefill_s:.1f} tok/s)")
 
     t0 = time.perf_counter()
     toks, _ = greedy_decode(model, params, prompts, args.gen)

@@ -8,10 +8,12 @@ state-dict name of a leaf is its JAX path with the layer index after
 
 * ``load_jax_params(model, tree)`` takes the JAX package's parameter tree
   (numpy arrays; ``blocks`` leaves stacked ``(L, ...)``), splits the stacked
-  leaves per layer and loads them, cast to each parameter's dtype.
+  leaves per layer and loads them, cast to each parameter's dtype (an MoE
+  router stays f32 in a bf16 model, as in JAX).
 * ``numpy_params(cfg, seed)`` builds a tree of that layout from a numpy
   generator.  The tests feed the same tree to both packages, and the card
-  rebuilds it without JAX.  Leaves are float32 (numpy has no bfloat16; a
+  rebuilds it without JAX.  ``patch_embeds(cfg, batch, seed)`` draws a VLM
+  prompt's stub patch embeddings the same way.  Leaves are float32 (numpy has no bfloat16; a
   bfloat16 model casts them on load).
 """
 
@@ -62,16 +64,21 @@ def param_shapes(cfg: ModelConfig) -> dict:
     d_in^-0.5), norm, bias, mix, decay0, bonus."""
     d, V, Lr = cfg.d_model, cfg.vocab, cfg.n_layers
     tree = {"embed": ((V, d), "embed")}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         H, KV, Dh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
         attn = {"wq": ((d, H * Dh), "weight"), "wk": ((d, KV * Dh), "weight"),
                 "wv": ((d, KV * Dh), "weight"), "wo": ((H * Dh, d), "weight")}
         if cfg.qkv_bias:
             attn.update(bq=((H * Dh,), "bias"), bk=((KV * Dh,), "bias"),
                         bv=((KV * Dh,), "bias"))
-        block = {"ln1": ((d,), "norm"), "attn": attn, "ln2": ((d,), "norm"),
-                 "mlp": {"w1": ((d, f), "weight"), "w3": ((d, f), "weight"),
-                         "w2": ((f, d), "weight")}}
+        block = {"ln1": ((d,), "norm"), "attn": attn, "ln2": ((d,), "norm")}
+        if cfg.is_moe:
+            E = cfg.n_experts
+            block["moe"] = {"router": ((d, E), "weight"), "w1": ((E, d, f), "weight"),
+                            "w3": ((E, d, f), "weight"), "w2": ((E, f, d), "weight")}
+        else:
+            block["mlp"] = {"w1": ((d, f), "weight"), "w3": ((d, f), "weight"),
+                            "w2": ((f, d), "weight")}
     elif cfg.family == "ssm":
         f, r, H = cfg.d_ff, cfg.decay_lora, d // HEAD_SIZE
         block = {
@@ -129,3 +136,13 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
         return a.astype(np.float32)
 
     return draw(param_shapes(cfg))
+
+
+def patch_embeds(cfg: ModelConfig, batch: int, seed: int) -> np.ndarray:
+    """A VLM prompt's stub patch embeddings (batch, n_patches, d) in float32,
+    normal with the token embeddings' scale d^-0.5.  The vision frontend is
+    a stub in the JAX package too: its batches carry precomputed
+    embeddings."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, cfg.n_patches, cfg.d_model)
+    return (rng.standard_normal(shape) * cfg.d_model**-0.5).astype(np.float32)

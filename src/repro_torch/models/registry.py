@@ -8,9 +8,11 @@ The port of ``repro/models/registry.py``.  ``get_model(cfg)`` returns a
   init_decode_cache(batch, max_len, device=None) -> cache
   decode_fn(params, cache, tokens) -> (logits, cache)
 
-for the ``dense`` and ``ssm`` families.  The other families are refused
-with their ROADMAP item.  Serving only: ``loss_fn`` and ``batch_spec`` wait
-with training (ROADMAP queue 1, item 14f).
+for the ``dense``, ``moe``, ``vlm`` and ``ssm`` families; a ``vlm`` batch
+may carry ``patch_embeds`` (B, n_patches, d), prepended to the tokens as the
+JAX facade's ``fwd`` does.  The other families are refused with their
+ROADMAP item.  Serving only: ``loss_fn`` and ``batch_spec`` wait with
+training (ROADMAP queue 1, item 14f).
 """
 
 from __future__ import annotations
@@ -23,10 +25,8 @@ from repro_torch.models import rwkv6, transformer
 
 # family -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "moe": "ROADMAP queue 1, item 14b",
     "hybrid": "ROADMAP queue 1, item 14c",
     "encdec": "ROADMAP queue 1, item 14d",
-    "vlm": "ROADMAP queue 1, item 14e",
 }
 
 
@@ -43,7 +43,8 @@ def _transformer_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator=None, device=None: transformer.init_lm(cfg, generator, device),
-        forward=lambda params, batch: transformer.forward(params, batch["tokens"]),
+        forward=lambda params, batch: transformer.forward(
+            params, batch["tokens"], extra_embeds=batch.get("patch_embeds")),
         init_decode_cache=lambda b, m, device=None: transformer.init_decode_cache(
             cfg, b, m, device),
         decode_fn=transformer.decode_fn,
@@ -66,7 +67,7 @@ def get_model(cfg: ModelConfig) -> Model:
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"({NOT_PORTED[cfg.family]})"
         )
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return _transformer_model(cfg)
     if cfg.family == "ssm":
         return _rwkv_model(cfg)

@@ -1,16 +1,20 @@
-"""Decoder-only transformer LM, the dense family, for serving.
+"""Decoder-only transformer LM (dense / MoE / VLM backbone), for serving.
 
 The port of ``repro/models/transformer.py``: ``init_lm``, ``forward``,
 ``init_decode_cache`` and ``decode_fn``.  One ``Block`` per layer in an
 ``nn.ModuleList`` takes the place of the stacked ``(L, ...)`` leaves and
-``lax.scan``.  Serving only: there is no backward, so ``loss_fn`` and remat
-wait with training (ROADMAP queue 1, item 14f).
+``lax.scan``; a block holds an ``MoE`` in place of its MLP when the config
+has experts.  ``forward`` prepends a VLM's patch embeddings
+(``extra_embeds``) and returns the summed MoE aux loss on request.  Serving
+only: there is no backward, so ``loss_fn`` and remat wait with training
+(ROADMAP queue 1, item 14f).
 
 ``forward`` runs the prefill attention through ``attention_op`` with
 ``attn_impl="kernel"`` by default, one ``flash_attention`` launch per layer
 on the card, where the JAX package defaults to ``"blockwise"`` (no JAX entry
 point ever selected its Pallas kernel).  Decode attends over the cache with
-the plain ``_cached_attention``, as the JAX package does.
+the plain ``_cached_attention``, as the JAX package does, and sees tokens
+only: JAX's ``decode_fn`` takes no patch prefix.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE, moe_apply
 
 
 class Block(nn.Module):
@@ -28,7 +33,10 @@ class Block(nn.Module):
         self.ln1 = L.param((cfg.d_model,), torch.float32, fill=1.0, device=device)
         self.attn = L.Attention(cfg, generator, device)
         self.ln2 = L.param((cfg.d_model,), torch.float32, fill=1.0, device=device)
-        self.mlp = L.MLP(cfg, generator, device)
+        if cfg.is_moe:
+            self.moe = MoE(cfg, generator, device)
+        else:
+            self.mlp = L.MLP(cfg, generator, device)
 
 
 class TransformerLM(nn.Module):
@@ -36,10 +44,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE blocks are not ported yet (ROADMAP queue 1, item 14b)"
-            )
         self.cfg = cfg
         dt = L.torch_dtype(cfg)
         d = cfg.d_model
@@ -58,14 +62,19 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None, device=N
 
 
 def block_apply(cfg, bp: Block, x, positions, attn_impl="kernel", cache=None):
-    """One layer: -> (x, the layer's updated (k, v, len) cache or None)."""
+    """One layer: -> (x, the layer's updated (k, v, len) cache or None, the
+    layer's MoE aux loss, an f32 0 without experts)."""
     h, new_kv = L.attention_apply(
         cfg, bp.attn, L.rmsnorm(x, bp.ln1, cfg.norm_eps), positions,
         cache=cache, attn_impl=attn_impl,
     )
     x = x + h
-    x = x + L.mlp_apply(bp.mlp, L.rmsnorm(x, bp.ln2, cfg.norm_eps))
-    return x, new_kv
+    y = L.rmsnorm(x, bp.ln2, cfg.norm_eps)
+    if cfg.is_moe:
+        m, aux = moe_apply(cfg, bp.moe, y)
+    else:
+        m, aux = L.mlp_apply(bp.mlp, y), torch.zeros((), device=x.device)
+    return x + m, new_kv, aux
 
 
 @torch.no_grad()
@@ -74,21 +83,25 @@ def forward(
     tokens: torch.Tensor,  # (B, S) int
     *,
     attn_impl: str = "kernel",
-    extra_embeds: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """-> logits (B, S, vocab).  (The JAX forward also returns the MoE aux
-    loss, which is 0 for the dense family.)"""
+    extra_embeds: torch.Tensor | None = None,  # VLM patch prefix (B, P, d)
+    return_aux: bool = False,
+):
+    """-> logits (B, P + S, vocab), or (logits, aux) with ``return_aux``:
+    the layers' MoE aux losses summed, as the JAX forward returns them (0
+    without experts).  The patch prefix is cast to the model's dtype and
+    takes positions 0..P-1, the tokens P..P+S-1."""
     cfg = model.cfg
-    if extra_embeds is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the VLM patch prefix is not ported yet (ROADMAP queue 1, item 14e)"
-        )
     x = model.embed[tokens].to(L.torch_dtype(cfg))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), device=x.device)
     for bp in model.blocks:
-        x, _ = block_apply(cfg, bp, x, positions, attn_impl)
+        x, _, layer_aux = block_apply(cfg, bp, x, positions, attn_impl)
+        aux = aux + layer_aux
     x = L.rmsnorm(x, model.ln_f, cfg.norm_eps)
-    return x @ model.unembed
+    logits = x @ model.unembed
+    return (logits, aux) if return_aux else logits
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -108,8 +121,8 @@ def decode_fn(model: TransformerLM, cache: dict, tokens: torch.Tensor):
     pos = cache["len"]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     for i, bp in enumerate(model.blocks):
-        x, _ = block_apply(cfg, bp, x, positions,
-                           cache=(cache["k"][i], cache["v"][i], pos))
+        x, _, _ = block_apply(cfg, bp, x, positions,
+                              cache=(cache["k"][i], cache["v"][i], pos))
     x = L.rmsnorm(x, model.ln_f, cfg.norm_eps)
     cache["len"] = pos + 1
     return x @ model.unembed, cache

@@ -1,16 +1,23 @@
 """The LM goldens of the port's card smoke, made by the JAX package.
 
-Run as a script, it runs the qwen1.5, starcoder2 and rwkv6 smoke configs in
-f32 through the JAX package on the CPU, with the weights of
-``repro_torch.models.convert.numpy_params(cfg, seed)`` and seeded prompts,
-and writes ``src/repro_torch/data/golden_lm.json``:
+Run as a script, it runs the qwen1.5, starcoder2, rwkv6, qwen3-moe,
+llama4-scout and pixtral smoke configs in f32 through the JAX package on the
+CPU, with the weights of ``repro_torch.models.convert.numpy_params(cfg,
+seed)``, seeded prompts and, for pixtral, seeded patch embeddings
+(``convert.patch_embeds(cfg, batch, patch_seed)``), and writes
+``src/repro_torch/data/golden_lm.json``:
 
   PYTHONPATH=src python tests/test_torch_golden_lm.py
 
 For each config it holds the last-position logits of a forward through the
-Pallas kernels (interpret mode) and the greedy tokens of the JAX example's
-``greedy_decode``, with the smallest gap between the best and the second
-logit over the greedy steps (so a tolerance below it cannot flip a token).
+Pallas kernels (interpret mode; pixtral's with its patch prefix) and the
+greedy tokens of the JAX example's ``greedy_decode``, with the smallest gap
+between the best and the second logit over the greedy steps (so a tolerance
+below it cannot flip a token).  The dense and rwkv6 entries take those
+steps' logits from the forward, which equals their decode path; the MoE and
+VLM entries from the decode path itself, which is what greedy decode saw:
+MoE decode drops assignments the forward keeps (C = 1 a step at cf 1.25,
+``repro/models/moe.py:129``), and VLM decode sees no patch prefix.
 ``chip_smoke.py`` reproduces the file on the card through the kernels.  Run
 as a test, it checks that the JAX package still reproduces the file and
 that the port does on the CPU.
@@ -19,6 +26,7 @@ that the port does on the CPU.
 import importlib.util
 import json
 import pathlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +39,8 @@ from repro.models import transformer as jax_transformer
 from repro.models.registry import get_model as jax_get_model
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve_lm import greedy_decode
-from repro_torch.models.convert import load_jax_params, numpy_params
+from repro_torch.models import moe
+from repro_torch.models.convert import load_jax_params, numpy_params, patch_embeds
 from repro_torch.models.registry import get_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -42,10 +51,23 @@ OUT = ROOT / "src" / "repro_torch" / "data" / "golden_lm.json"
 RUNS = {
     arch: dict(arch=arch, weights_seed=w, prompt_seed=ps, batch=2, prompt_len=10, gen=8)
     for arch, w, ps in (("qwen1_5_0_5b", 0, 101), ("starcoder2_3b", 1, 101),
-                        ("rwkv6_3b", 2, 102))
+                        ("rwkv6_3b", 2, 102), ("qwen3_moe_235b_a22b", 3, 103),
+                        ("llama4_scout_17b_16e", 4, 104), ("pixtral_12b", 5, 105))
 }
+RUNS["pixtral_12b"]["patch_seed"] = 106
 # f32 throughout, another summation order than JAX's on the CPU
 LOGITS_TOL = 1e-4
+# the port's smallest gap between a token's K-th and (K+1)-th router
+# probability over every MoE layer of the forward and of greedy decode: far
+# above the ~1e-6 by which f32 on the card may differ, so no choice flips
+ROUTE_MARGIN = 1e-4
+
+
+def patches(run: dict):
+    """The run's patch embeddings (numpy), or None."""
+    if "patch_seed" not in run:
+        return None
+    return patch_embeds(get_smoke_config(run["arch"]), run["batch"], run["patch_seed"])
 
 
 def prompts(run: dict) -> np.ndarray:
@@ -62,7 +84,9 @@ def jax_record(run: dict) -> dict:
     if cfg.family == "ssm":
         logits = jax_rwkv6.forward(params, cfg, toks, wkv_impl="pallas")[0]
     else:
-        logits = jax_transformer.forward(params, cfg, toks, attn_impl="pallas")[0]
+        pe = patches(run)
+        logits = jax_transformer.forward(params, cfg, toks, attn_impl="pallas",
+                                         extra_embeds=None if pe is None else jnp.asarray(pe))[0]
     spec = importlib.util.spec_from_file_location(
         "jax_serve_lm_example", ROOT / "examples" / "serve_lm.py")
     example = importlib.util.module_from_spec(spec)
@@ -71,8 +95,17 @@ def jax_record(run: dict) -> dict:
     gen = np.asarray(example.greedy_decode(cfg, model, params, toks, run["gen"]))
     # the greedy steps' logits, for the margin of each argmax
     seq = jnp.concatenate([toks, jnp.asarray(gen[:, :-1])], axis=1)
-    fwd = jax_rwkv6.forward if cfg.family == "ssm" else jax_transformer.forward
-    steps = np.asarray(fwd(params, cfg, seq)[0])[:, run["prompt_len"] - 1 :]
+    if cfg.family in ("moe", "vlm"):  # the decode path's own logits
+        cache, _ = model.init_decode_cache(run["batch"], run["prompt_len"] + run["gen"] + 1)
+        decode, outs = jax.jit(model.decode_fn), []
+        for t in range(seq.shape[1]):
+            step, cache = decode(params, cache, seq[:, t : t + 1])
+            outs.append(np.asarray(step))
+        steps = np.concatenate(outs, axis=1)[:, run["prompt_len"] - 1 :]
+    else:
+        fwd = jax_rwkv6.forward if cfg.family == "ssm" else jax_transformer.forward
+        steps = np.asarray(fwd(params, cfg, seq)[0])[:, run["prompt_len"] - 1 :]
+    assert (steps.argmax(-1) == gen).all()
     top2 = np.sort(steps, axis=-1)[..., -2:]
     return {
         "last_logits": np.asarray(logits[:, -1], np.float32).tolist(),
@@ -82,14 +115,31 @@ def jax_record(run: dict) -> dict:
 
 
 def port_record(run: dict) -> dict:
+    """The port's record on the CPU, with ``route_margin``: the smallest
+    gap between a token's K-th and (K+1)-th router probability over every
+    MoE call of the forward and greedy decode (inf without experts)."""
     cfg = get_smoke_config(run["arch"])
     model = get_model(cfg)
     params = load_jax_params(model.init(device="cpu"),
                              numpy_params(cfg, run["weights_seed"]))
     toks = torch.from_numpy(prompts(run)).long()
-    logits = model.forward(params, {"tokens": toks})
-    gen, _ = greedy_decode(model, params, toks, run["gen"])
-    return {"last_logits": logits[:, -1].numpy(), "tokens": gen.numpy()}
+    batch = {"tokens": toks}
+    if patches(run) is not None:
+        batch["patch_embeds"] = torch.from_numpy(patches(run))
+    margins = [float("inf")]
+    route = moe.route
+
+    def watched(cfg, p, x):
+        r = route(cfg, p, x)
+        top = r["probs"].topk(cfg.top_k + 1, dim=-1).values
+        margins.append(float((top[:, -2] - top[:, -1]).min()))
+        return r
+
+    with mock.patch.object(moe, "route", watched):
+        logits = model.forward(params, batch)
+        gen, _ = greedy_decode(model, params, toks, run["gen"])
+    return {"last_logits": logits[:, -1].numpy(), "tokens": gen.numpy(),
+            "route_margin": min(margins)}
 
 
 def test_jax_reproduces_golden_lm():
@@ -109,6 +159,7 @@ def test_port_reproduces_golden_lm_on_cpu():
         got, want = port_record(run), golden[arch]["result"]
         assert got["tokens"].tolist() == want["tokens"], arch
         assert np.abs(got["last_logits"] - np.array(want["last_logits"])).max() < LOGITS_TOL
+        assert got["route_margin"] > ROUTE_MARGIN, arch
 
 
 if __name__ == "__main__":

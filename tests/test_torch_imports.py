@@ -68,6 +68,7 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.models.layers",
         "repro_torch.models.transformer",
         "repro_torch.models.rwkv6",
+        "repro_torch.models.moe",
         "repro_torch.models.registry",
         "repro_torch.models.convert",
         "repro_torch.launch.serve_lm",
