@@ -10,7 +10,8 @@ Phases (any failed check raises, so the exit code is not 0):
 1. card and build — the card's name and power limit from nvidia-smi; every
    CUDA kernel of the port built from the sources in the checkout, one nvcc
    per source, all started together; the tensor-core attention kernel's
-   SASS holds wgmma (HGMMA) instructions;
+   SASS holds wgmma (HGMMA) instructions; neither attention library spills
+   to local memory (the D 256 instantiations included);
 2. kernels vs plain — ``batched_degrees`` and ``batched_expand_stats``
    against their plain PyTorch versions on the card, exactly, over n in
    {1, 31, 33, 300, 600, 2048}, T in {1, 2, 7, 128, 1024}, random, empty,
@@ -54,7 +55,8 @@ Phases (any failed check raises, so the exit code is not 0):
    dispatch rule sends bf16 with D % 16 == 0 to the tensor-core variant,
    the rest to the CUDA-core one), and at the serving shapes (qwen1.5-0.5b's
    prefill, starcoder2-3b's GQA widths, a window, one query against 1,057
-   keys; in bf16 both variants); ``wkv6`` against ``wkv6_ref`` on the JAX
+   keys, and at head size 256 with one KV head, GQA, windows, key tails, one
+   query and non-causal, and D 192 and 144; in bf16 both variants); ``wkv6`` against ``wkv6_ref`` on the JAX
    package's cases with and without a state and at RWKV6-3B's prefill; then
    both timed at the serving shapes, both attention variants in the same
    call, beside their plain versions (and attention beside
@@ -246,6 +248,34 @@ Phases (any failed check raises, so the exit code is not 0):
    prefill tok/s, ms a decode step and peak memory.  The kernels line gives
    the prefills' launches as ``moe_vlm_launches`` and the attention times
    at these shapes as ``moe_vlm_shapes``.
+19. Griffin and Whisper serving (run after phase 18) — (a) ``golden_lm.json``'s
+   recurrentgemma and whisper entries (JAX-made, f32 smoke configs,
+   whisper's with seeded frames that also prime its decode) reproduced
+   through the kernel; (b) recurrentgemma-9b uncut (38 layers: 26 RG-LRU, 12
+   local attention of 16/1 heads of 256 over a 2,048-key window) at full
+   width in bf16 with the port's seeded init: ``flash_attention`` at its
+   prefill shape against its plain version, SDPA (a boolean window mask) and
+   its bound; a prefill of 4 prompts of 4,096 tokens, exactly one
+   tensor-core launch per attention layer, and greedy decode (the last 256
+   prompt tokens walked, 32 generated), which launches nothing; per
+   attention layer the output with the kernel against the plain op in f64;
+   the whole bf16 forward held to the witness; the bf16 decode path's last
+   prompt logits against a forward of the walked tokens; then one pattern
+   unit (rec, rec, attn) at full width in f32: the forward (the CUDA-core
+   variant at D 256, S 2,112) against the plain one, and decode
+   teacher-forced over 2,112 tokens, so the 2,048-slot ring wraps, against
+   the forward; (c) whisper-large-v3 uncut (32 + 32 layers, 20 heads of 64,
+   1,500 seeded frames): attention at its encoder's shape (non-causal)
+   against plain, SDPA and the bound; ``encode`` alone (32 non-causal
+   launches), a prefill of 4 x 448 tokens (64 launches: 32 non-causal, 32
+   causal), greedy decode primed from the same frames (``prime_cross_cache``:
+   32 launches); per layer the encoder's and the decoder's self-attention
+   against the plain op in f64; the witness; the bf16 decode path against a
+   forward of the walked tokens; on 2 + 2 layers in f32 the kernel forward
+   against the plain one and decode against the forward.  Prints prefill
+   tok/s, ms a decode step and peak memory.  The kernels line gives the
+   paths' launches as ``hybrid_encdec_launches`` and the attention times at
+   these shapes as ``hybrid_encdec_shapes``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -2896,13 +2926,23 @@ ATTN_CASES = [
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 VARIANT_SOURCES = {"tensor_core": "flash_attention_wgmma.cu", "cuda_core": "flash_attention.cu"}
 # the serving shapes: qwen1.5-0.5b's prefill (B 4, S 1024, 16 heads of 64),
-# starcoder2-3b's GQA widths, a window, one query against a 1,057-key cache
+# starcoder2-3b's GQA widths, a window, one query against a 1,057-key cache;
+# at head size 256 (recurrentgemma's local attention: four panels, 32-key
+# tiles on the tensor cores) one KV head under a window with a key tail off
+# the tile, GQA with a window, one query, non-causal, and D 192 and 144 (the
+# last panel empty or partly filled)
 QWEN_ATTN = dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=None)
 SERVING_ATTN = [
     QWEN_ATTN,
     dict(B=4, Sq=1024, Sk=1024, Hq=24, Hkv=2, D=128, causal=True, window=None),
     dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=256),
     dict(B=4, Sq=1, Sk=1057, Hq=16, Hkv=16, D=64, causal=True, window=None),
+    dict(B=2, Sq=600, Sk=600, Hq=16, Hkv=1, D=256, causal=True, window=256),
+    dict(B=1, Sq=200, Sk=200, Hq=4, Hkv=2, D=256, causal=True, window=48),
+    dict(B=2, Sq=1, Sk=77, Hq=4, Hkv=1, D=256, causal=True, window=24),
+    dict(B=1, Sq=70, Sk=70, Hq=2, Hkv=2, D=256, causal=False, window=None),
+    dict(B=1, Sq=130, Sk=130, Hq=4, Hkv=1, D=192, causal=True, window=None),
+    dict(B=1, Sq=100, Sk=100, Hq=2, Hkv=1, D=144, causal=True, window=40),
 ]
 WKV_CASES = [(2, 64, 2, 16, 16), (1, 128, 4, 32, 32), (2, 96, 1, 8, 24),
              (1, 32, 2, 64, 64), (1, 64, 3, 16, 48), (2, 50, 2, 16, 16)]
@@ -2941,9 +2981,11 @@ F32_REL_TOL = 1e-3
 F32_DECODE_PROMPT = 64
 # the bf16 decode path's logits at the last of the 1,024 prompt tokens against
 # the forward's, about twice the readings of an H100 (1.9% and 10.9%; pixtral's
-# at the last of phase 18's 256 walked tokens 2.1%; a decode fault -- a wrong
-# position, cache slot or state -- gives errors of order 1)
-BF16_DECODE_TOL = {"qwen1.5-0.5b": 0.04, "rwkv6-3b": 0.22, "pixtral-12b": 0.05}
+# at the last of phase 18's 256 walked tokens 2.1%, recurrentgemma's and
+# whisper's in phase 19 1.87% and 1.18%; a decode fault -- a wrong position,
+# cache or ring slot, state or cross K/V -- gives errors of order 1)
+BF16_DECODE_TOL = {"qwen1.5-0.5b": 0.04, "rwkv6-3b": 0.22, "pixtral-12b": 0.05,
+                   "recurrentgemma-9b": 0.04, "whisper-large-v3": 0.025}
 
 
 def _attn_inputs(c, dtype, dev, seed):
@@ -3145,18 +3187,29 @@ def phase_lm_kernels(dev) -> dict:
     return out
 
 
+def _attention_layers(cfg) -> int:
+    """flash_attention launches of one forward: a layer each, Griffin's
+    attention layers only, an encoder-decoder's encoder and decoder."""
+    if cfg.family == "hybrid":
+        return cfg.layer_kinds().count("attn")
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers
+    return cfg.n_layers
+
+
 def phase_golden_lm(dev, families=("dense", "ssm")) -> None:
     """golden_lm.json (JAX-made, f32 smoke configs) through the kernels: the
     entries of the given families (phase 9 the dense and ssm ones, phase 18
-    the moe and vlm ones; a vlm entry's prefill carries its seeded patch
-    embeddings)."""
+    the moe and vlm ones, phase 19 the hybrid and encdec ones; a vlm entry's
+    prefill carries its seeded patch embeddings, an encdec entry's its seeded
+    frames, with which its greedy decode is primed)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import counts
     from repro_torch.launch.serve_lm import greedy_decode
-    from repro_torch.models.convert import load_jax_params, numpy_params, patch_embeds
+    from repro_torch.models.convert import frames, load_jax_params, numpy_params, patch_embeds
     from repro_torch.models.registry import get_model
 
     golden = json.loads((ROOT / "src" / "repro_torch" / "data" / "golden_lm.json").read_text())
@@ -3173,18 +3226,21 @@ def phase_golden_lm(dev, families=("dense", "ssm")) -> None:
         if "patch_seed" in run:
             batch["patch_embeds"] = torch.from_numpy(
                 patch_embeds(cfg, run["batch"], run["patch_seed"])).to(dev)
+        if "frames_seed" in run:
+            batch["frames"] = torch.from_numpy(
+                frames(cfg, run["batch"], run["frames_seed"])).to(dev)
         counts.reset()
         logits = model.forward(params, batch)
         torch.cuda.synchronize()
         launches = counts.snapshot()
         # f32: attention runs on the CUDA-core variant
         kernel = "wkv6" if cfg.family == "ssm" else "flash_attention.cuda_core"
-        check(launches == {kernel: cfg.n_layers},
-              f"golden {arch}: launches {launches}, want {cfg.n_layers} {kernel}")
+        n = cfg.n_layers if cfg.family == "ssm" else _attention_layers(cfg)
+        check(launches == {kernel: n}, f"golden {arch}: launches {launches}, want {n} {kernel}")
         want = torch.tensor(run["result"]["last_logits"], device=dev)
         e = float((logits[:, -1] - want).abs().max())
         check(e < GOLDEN_LM_TOL, f"golden {arch}: last logits max abs err {e}")
-        gen, _ = greedy_decode(model, params, toks, run["gen"])
+        gen, _ = greedy_decode(model, params, toks, run["gen"], frames=batch.get("frames"))
         check(gen.tolist() == run["result"]["tokens"],
               f"golden {arch}: greedy tokens {gen.tolist()} != {run['result']['tokens']}")
         print(f"[smoke] golden_lm {cfg.name}: last logits within {e:.3g} of JAX's "
@@ -3193,12 +3249,23 @@ def phase_golden_lm(dev, families=("dense", "ssm")) -> None:
 
 
 def _rel(a, b) -> float:
-    a, b = a.float(), b.float()
-    return float((a - b).norm() / b.norm())
+    """||a - b|| / ||b|| in f32; over slices of the first dimension when the
+    tensors are large (recurrentgemma's bf16 logits are 8.4 GB, 16.8 in f32)."""
+    if a.numel() <= 2**28:
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+    num = den = 0.0
+    rows = max(1, 2**26 // a.shape[-1])  # slices of ~2^26 elements: 256 MB in f32
+    for x, y in zip(a.flatten(0, -2).split(rows), b.flatten(0, -2).split(rows)):
+        x, y = x.float(), y.float()
+        num += float(((x - y) ** 2).sum())
+        den += float((y * y).sum())
+    return (num / den) ** 0.5
 
 
 PLAIN_ROUTE = {"dense": ("attn_impl", "blockwise"), "moe": ("attn_impl", "blockwise"),
-               "vlm": ("attn_impl", "blockwise"), "ssm": ("wkv_impl", "ref")}
+               "vlm": ("attn_impl", "blockwise"), "ssm": ("wkv_impl", "ref"),
+               "hybrid": ("attn_impl", "blockwise"), "encdec": ("attn_impl", "blockwise")}
 
 
 def _wkv6_f64(r, k, v, decay, u, initial_state=None, *, impl):
@@ -3247,13 +3314,46 @@ def _route(cfg, route):
 
 
 def _forward(cfg, params, toks, route, extra=None):
-    """The forward's logits on ``route``; ``extra``: a vlm's patch prefix."""
-    from repro_torch.models import rwkv6, transformer
+    """The forward's logits on ``route``; ``extra``: a vlm's patch prefix or
+    an encoder-decoder's frames."""
+    from repro_torch.models import encdec, griffin, rwkv6, transformer
 
     with _route(cfg, route) as kw:
         if cfg.family == "ssm":
             return rwkv6.forward(params, toks, **kw)
+        if cfg.family == "hybrid":
+            return griffin.forward(params, toks, **kw)
+        if cfg.family == "encdec":
+            return encdec.forward(params, toks, frames=extra, **kw)
         return transformer.forward(params, toks, extra_embeds=extra, **kw)
+
+
+ROUTE_PAIRS = ("kernel/f64", "kernel/plain", "f64/plain")
+
+
+def _worst(worst: dict, h: dict) -> None:
+    """Raises each pair of routes' entry of ``worst`` to ||a - b|| / ||b|| of h."""
+    for pair in worst:
+        a, b = pair.split("/")
+        worst[pair] = max(worst[pair], _rel(h[a], h[b]))
+
+
+def _routes_h(cfg, lp, xn, positions, causal=True) -> dict:
+    """A layer's time-mixing output h on the three routes, fed the same xn:
+    an ssm's time-mix, else attention (causal over the config's window, or
+    bidirectional: an encoder's)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv6
+
+    h = {}
+    for route in ("kernel", "plain", "f64"):
+        with _route(cfg, route) as kw:
+            if cfg.family == "ssm":
+                h[route] = rwkv6.tmix_apply(cfg, lp, xn, **kw)[0]
+            else:
+                h[route] = L.attention_apply(cfg, lp, xn, positions, causal=causal,
+                                             window=cfg.window if causal else None, **kw)[0]
+    return h
 
 
 def _layer_h(cfg, params, toks) -> dict:
@@ -3265,22 +3365,13 @@ def _layer_h(cfg, params, toks) -> dict:
     from repro_torch.models import layers as L
     from repro_torch.models import rwkv6, transformer
 
-    pairs = (("kernel", "f64"), ("kernel", "plain"), ("f64", "plain"))
-    worst = {f"{a}/{b}": 0.0 for a, b in pairs}
+    worst = dict.fromkeys(ROUTE_PAIRS, 0.0)
     with torch.no_grad():
         x = params.embed[toks].to(L.torch_dtype(cfg))
         positions = torch.arange(x.shape[1], device=x.device)
         for bp in params.blocks:
-            xn = L.rmsnorm(x, bp.ln1, cfg.norm_eps)
-            h = {}
-            for route in ("kernel", "plain", "f64"):
-                with _route(cfg, route) as kw:
-                    if cfg.family == "ssm":
-                        h[route] = rwkv6.tmix_apply(cfg, bp.tmix, xn, **kw)[0]
-                    else:
-                        h[route] = L.attention_apply(cfg, bp.attn, xn, positions, **kw)[0]
-            for a, b in pairs:
-                worst[f"{a}/{b}"] = max(worst[f"{a}/{b}"], _rel(h[a], h[b]))
+            lp = bp.tmix if cfg.family == "ssm" else bp.attn
+            _worst(worst, _routes_h(cfg, lp, L.rmsnorm(x, bp.ln1, cfg.norm_eps), positions))
             if cfg.family == "ssm":
                 x, _ = rwkv6.block_apply(cfg, bp, x)
             else:
@@ -3288,18 +3379,77 @@ def _layer_h(cfg, params, toks) -> dict:
     return worst
 
 
+def _serve_walk(model, params, batch, dev, label) -> tuple:
+    """The serving path at full width: a warm-up forward, then, launches
+    counted from zero, the prefill and greedy decode (the prompts' last
+    DECODE_WALK tokens walked into the cache, then SERVE["gen"] generated; an
+    encoder-decoder's cache primed with the prompt's frames; a vlm's walk
+    sees the tokens only).  Returns (logits, the decode path's last prompt
+    logits, the prefill's launches, the whole path's launches, the
+    reading)."""
+    import torch
+
+    from repro_torch.kernels import counts
+    from repro_torch.launch.serve_lm import greedy_decode
+
+    cfg, toks = model.cfg, batch["tokens"]
+    B, gen = toks.shape[0], SERVE["gen"]
+    S = toks.shape[1] + (cfg.n_patches if "patch_embeds" in batch else 0)
+    model.forward(params, batch)  # warm-up: cuBLAS and kernel loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    logits = model.forward(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = counts.snapshot()
+    walk = toks[:, -DECODE_WALK:]
+    t0 = time.perf_counter()
+    gen_toks, prompt_logits = greedy_decode(model, params, walk, gen, frames=batch.get("frames"))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = counts.snapshot()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(gen_toks.shape) == (B, gen) and tuple(logits.shape) == (B, S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{label}: generated {tuple(gen_toks.shape)}, logits {tuple(logits.shape)}")
+    n_steps = walk.shape[1] + gen
+    rec = dict(layers=cfg.n_layers, prefill_tok_s=B * S / prefill_s,
+               decode_ms=1e3 * decode_s / n_steps, peak_gb=peak_gb)
+    print(f"[smoke] serve {label}: prefill {B}x{S} in {prefill_s:.6f} s = {B * S / prefill_s:.1f} "
+          f"tok/s; greedy decode {walk.shape[1]}+{gen} steps in {decode_s:.3f} s = "
+          f"{rec['decode_ms']:.3f} ms/step, {B * n_steps / decode_s:.1f} tok/s; peak memory "
+          f"{peak_gb:.3f} GB; launches: prefill {prefill_launches}, with decode {launches}")
+    return logits, prompt_logits, prefill_launches, launches, rec
+
+
+def _witness(cfg, params, toks, logits, extra, label) -> dict:
+    """The whole bf16 forward on the three routes, held to the witness."""
+    fwd = {"kernel": logits, "plain": _forward(cfg, params, toks, "plain", extra),
+           "f64": _forward(cfg, params, toks, "f64", extra)}
+    e_fwd = {f"{a}/{b}": _rel(fwd[a], fwd[b]) for a, b in (
+        ("kernel", "plain"), ("f64", "plain"), ("kernel", "f64"))}
+    check(e_fwd["kernel/f64"] <= WITNESS_FACTOR * e_fwd["f64/plain"],
+          f"{label}: bf16 forward, kernel vs f64 route {e_fwd['kernel/f64']} > "
+          f"{WITNESS_FACTOR} x plain vs f64 route {e_fwd['f64/plain']}")
+    return e_fwd
+
+
 def _f32_copy(cfg, params, dev, layers=None):
     """The same weights in an f32 model of the same config, or of its first
-    ``layers`` layers."""
+    ``layers`` layers (an encoder-decoder's first ``layers`` encoder and
+    decoder layers; Griffin's first ``layers / 3`` units): every parameter
+    of the cut model, by name, from ``params``."""
     import dataclasses
 
+    from repro_torch.launch.serve_lm import cut_depth
     from repro_torch.models.registry import get_model
 
-    n = cfg.n_layers if layers is None else layers
-    model = get_model(dataclasses.replace(cfg, dtype="float32", n_layers=n))
+    model = get_model(cut_depth(dataclasses.replace(cfg, dtype="float32"), layers))
     copy = model.init(device="meta").to_empty(device=dev)
-    copy.load_state_dict({k: v for k, v in params.state_dict().items()
-                          if not k.startswith("blocks.") or int(k.split(".")[1]) < n})
+    names = set(copy.state_dict())
+    copy.load_state_dict({k: v for k, v in params.state_dict().items() if k in names})
     return model, copy
 
 
@@ -3364,14 +3514,8 @@ def phase_serve_lm(dev) -> dict:
         check(e_h["kernel/f64"] < SERVE_H_TOL,
               f"{arch}: a layer's h, kernel vs f64 route {e_h['kernel/f64']}")
         # whole bf16 forwards through the three routes, and the witness
-        fwd = {"kernel": logits, "plain": _forward(cfg, params, toks, "plain"),
-               "f64": _forward(cfg, params, toks, "f64")}
-        e_fwd = {f"{a}/{b}": _rel(fwd[a], fwd[b]) for a, b in (
-            ("kernel", "plain"), ("f64", "plain"), ("kernel", "f64"))}
-        check(e_fwd["kernel/f64"] <= WITNESS_FACTOR * e_fwd["f64/plain"],
-              f"{arch}: bf16 forward, kernel vs f64 route {e_fwd['kernel/f64']} > "
-              f"{WITNESS_FACTOR} x plain vs f64 route {e_fwd['f64/plain']}")
-        del logits, fwd
+        e_fwd = _witness(cfg, params, toks, logits, None, arch)
+        del logits
         model32, params32 = _f32_copy(cfg, params, dev)
         del params
         e_f32_fwd = _rel(_forward(model32.cfg, params32, toks, "kernel"),
@@ -3445,10 +3589,12 @@ DROP_DECODE_STEPS = 16
 DECODE_WALK = 256
 
 
-def _attn_at(cfg, B, S, dev, seed) -> dict:
-    """flash_attention at a model's prefill shape, bf16: within one bf16 step
+def _attn_at(cfg, B, S, dev, seed, causal=True) -> dict:
+    """flash_attention at a model's prefill shape, bf16 (causal over the
+    config's window, or bidirectional: an encoder's): within one bf16 step
     of its plain version and SDPA's agreement, then the kernel, the plain
-    version and SDPA timed, beside the bound."""
+    version and SDPA timed, beside the bound.  SDPA takes a window as a
+    boolean mask."""
     import torch
     import torch.nn.functional as F
 
@@ -3456,32 +3602,40 @@ def _attn_at(cfg, B, S, dev, seed) -> dict:
     from repro_torch.kernels.flash_attention.kernel import variant_for
     from repro_torch.launch.timing import time_ms
 
-    check(cfg.window is None, f"{cfg.name}: SDPA's causal mask has no window")
+    window = cfg.window if causal else None
     c = dict(B=B, Sq=S, Sk=S, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, D=cfg.d_head,
-             causal=True, window=None)
+             causal=causal, window=window)
+    kw = dict(causal=causal, window=window)
     q, k, v = _attn_inputs(c, torch.bfloat16, dev, seed)
     check(variant_for(q, k, v) == "tensor_core", f"{cfg.name}: attention not on tensor cores")
-    got = flash_attention(q, k, v, causal=True).float()
-    want = flash_attention_plain(q, k, v, causal=True).float()
+    got = flash_attention(q, k, v, **kw).float()
+    want = flash_attention_plain(q, k, v, **kw).float()
     diff = (got - want).abs()
     err = float(diff.max())
     check(bool((diff <= 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6).all()),
           f"flash_attention at {c}: more than one bf16 step from the plain version ({err})")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    mask = None
+    if window is not None:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    library = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
     e_lib = float((library().transpose(1, 2).float() - got).abs().max())
     check(e_lib < ATTN_TOL["bfloat16"], f"scaled_dot_product_attention disagrees at {c}: {e_lib}")
     del got, want, diff
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), n=10, runs=3,
-                       warmup=2)
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), n=10, runs=3, warmup=2)
     library_ms = time_ms(library)
     moved, flops = _attn_work(c, 2)
     bound, by = _bound_ms(moved, 0)
     if flops / PEAK_BF16_FLOPS * 1e3 > bound:
         bound, by = flops / PEAK_BF16_FLOPS * 1e3, "operations"
+    shape = "causal" if causal else "non-causal"
+    if window is not None:
+        shape += f", window {window}"
     print(f"[smoke] flash_attention at {cfg.name}'s prefill (B {B}, S {S}, {cfg.n_heads}/"
-          f"{cfg.n_kv_heads} heads of {cfg.d_head}, causal, bf16): kernel {ms:.6f} ms, plain "
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, {shape}, bf16): kernel {ms:.6f} ms, plain "
           f"{plain_ms:.6f} ms, SDPA {library_ms:.6f} ms (agrees within {e_lib:.3g}), bound "
           f"{bound:.6f} ms ({by}: {moved} B, {flops} FLOP); max abs err vs plain {err:.3g}")
     return {"model": cfg.name, "shape": c, "ms": ms, "plain_ms": plain_ms,
@@ -3600,8 +3754,7 @@ def _moe_vlm_layers(cfg, params, toks, extra) -> tuple:
     from repro_torch.models import layers as L
     from repro_torch.models import moe, transformer
 
-    pairs = (("kernel", "f64"), ("kernel", "plain"), ("f64", "plain"))
-    worst = {f"{a}/{b}": 0.0 for a, b in pairs}
+    worst = dict.fromkeys(ROUTE_PAIRS, 0.0)
     st = dict(moe_rounded=0.0, moe_rel=0.0, flipped=0, keep_differs=0, compared=0, dropped=0, assignments=0)
     d = cfg.d_model
     with torch.no_grad():
@@ -3610,13 +3763,8 @@ def _moe_vlm_layers(cfg, params, toks, extra) -> tuple:
             x = torch.cat([extra.to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         for bp in params.blocks:
-            xn = L.rmsnorm(x, bp.ln1, cfg.norm_eps)
-            h = {}
-            for route in ("kernel", "plain", "f64"):
-                with _route(cfg, route) as kw:
-                    h[route] = L.attention_apply(cfg, bp.attn, xn, positions, **kw)[0]
-            for a, b in pairs:
-                worst[f"{a}/{b}"] = max(worst[f"{a}/{b}"], _rel(h[a], h[b]))
+            h = _routes_h(cfg, bp.attn, L.rmsnorm(x, bp.ln1, cfg.norm_eps), positions)
+            _worst(worst, h)
             if cfg.is_moe:
                 y = L.rmsnorm(x + h["kernel"], bp.ln2, cfg.norm_eps)
                 p64 = types.SimpleNamespace(**{n: getattr(bp.moe, n).double()
@@ -3653,14 +3801,12 @@ def phase_moe_vlm(dev) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import counts
-    from repro_torch.launch.serve_lm import greedy_decode
     from repro_torch.models import moe
     from repro_torch.models.convert import patch_embeds
     from repro_torch.models.registry import get_model
 
     phase_golden_lm(dev, families=("moe", "vlm"))
-    B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    B, P = SERVE["batch"], SERVE["prompt_len"]
     kernel = "flash_attention.tensor_core"
     out = {"launches": 0, "attention": [], "models": {}}
     for i, (arch, layers) in enumerate(MOE_VLM):
@@ -3683,41 +3829,17 @@ def phase_moe_vlm(dev) -> dict:
         if cfg.is_moe:
             for shape in ((B, P), (B, 1)):
                 _no_host_sync(cfg, params.blocks[0], dev, *shape)
-        model.forward(params, batch)  # warm-up: cuBLAS and kernel loads
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
+        print(f"[smoke] {cfg.name}: set-up {time.perf_counter() - t0:.3f} s")
 
         # the serving path: prefill, then greedy decode, launches counted
-        torch.cuda.reset_peak_memory_stats()
-        counts.reset()
-        t0 = time.perf_counter()
-        logits = model.forward(params, batch)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        prefill_launches = counts.snapshot()
-        walk = toks[:, -DECODE_WALK:]
-        t0 = time.perf_counter()
-        gen_toks, prompt_logits = greedy_decode(model, params, walk, gen)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        launches = counts.snapshot()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        label = f"{cfg.name} ({cfg.n_layers} layers, {n_params} params, bf16)"
+        logits, prompt_logits, prefill_launches, launches, rec = _serve_walk(
+            model, params, batch, dev, label)
         check(prefill_launches == {kernel: cfg.n_layers},
               f"{arch}: prefill launches {prefill_launches}, want {cfg.n_layers} {kernel}")
         check(launches == prefill_launches, f"{arch}: decode launched {launches}")
         out["launches"] += launches[kernel]
-        check(tuple(gen_toks.shape) == (B, gen) and tuple(logits.shape) == (B, S, cfg.vocab)
-              and bool(torch.isfinite(logits).all()),
-              f"{arch}: generated {tuple(gen_toks.shape)}, logits {tuple(logits.shape)}")
-        n_steps = walk.shape[1] + gen
-        step_ms = 1e3 * decode_s / n_steps
-        line = (f"[smoke] serve {cfg.name} ({cfg.n_layers} layers, {n_params} params, bf16): "
-                f"prefill {B}x{S} in {prefill_s:.6f} s = {B * S / prefill_s:.1f} tok/s; greedy "
-                f"decode {walk.shape[1]}+{gen} steps in {decode_s:.3f} s = {step_ms:.3f} ms/step, "
-                f"{B * n_steps / decode_s:.1f} tok/s; peak memory {peak_gb:.3f} GB; set-up "
-                f"{setup_s:.3f} s; launches {launches}")
-        rec = dict(layers=cfg.n_layers, prefill_tok_s=B * S / prefill_s, decode_ms=step_ms,
-                   peak_gb=peak_gb)
+        walk = toks[:, -DECODE_WALK:]
         if cfg.is_moe:
             cache = model.init_decode_cache(B, DROP_DECODE_STEPS, device=dev)
             with _routing_log() as log:
@@ -3725,22 +3847,15 @@ def phase_moe_vlm(dev) -> dict:
                     model.decode_fn(params, cache, toks[:, t : t + 1])
             rec["decode_drop_share"] = (sum(int(c["dropped"]) for c in log)
                                         / sum(c["assignments"] for c in log))
-            line += (f"; capacity C {moe.capacity(cfg, B * P)} in the prefill, "
-                     f"{moe.capacity(cfg, B)} in a decode step")
-        print(line)
+            print(f"[smoke] {cfg.name}: capacity C {moe.capacity(cfg, B * P)} in the prefill, "
+                  f"{moe.capacity(cfg, B)} in a decode step")
 
         t0 = time.perf_counter()
         e_h, st = _moe_vlm_layers(cfg, params, toks, extra)
         check(e_h["kernel/f64"] < SERVE_H_TOL,
               f"{arch}: a layer's attention h, kernel vs f64 route {e_h['kernel/f64']}")
-        fwd = {"kernel": logits, "plain": _forward(cfg, params, toks, "plain", extra),
-               "f64": _forward(cfg, params, toks, "f64", extra)}
-        e_fwd = {f"{a}/{b}": _rel(fwd[a], fwd[b]) for a, b in (
-            ("kernel", "plain"), ("f64", "plain"), ("kernel", "f64"))}
-        check(e_fwd["kernel/f64"] <= WITNESS_FACTOR * e_fwd["f64/plain"],
-              f"{arch}: bf16 forward, kernel vs f64 route {e_fwd['kernel/f64']} > "
-              f"{WITNESS_FACTOR} x plain vs f64 route {e_fwd['f64/plain']}")
-        del logits, fwd
+        e_fwd = _witness(cfg, params, toks, logits, extra, arch)
+        del logits
         fmt = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
         line = (f"[smoke] {cfg.name} checks: the layers' attention h (bf16), largest of "
                 f"{fmt(e_h)}; whole bf16 forwards {fmt(e_fwd)}")
@@ -3819,6 +3934,303 @@ def phase_moe_vlm(dev) -> dict:
     return out
 
 
+
+# -- Griffin and Whisper serving (phase 19) ----------------------------------------
+
+# full width, bf16, seeded init, uncut: recurrentgemma-9b ~17 GB in bf16,
+# whisper-large-v3 ~3.2 GB.  recurrentgemma's prompts are twice its 2,048-key
+# window, so every attention layer's later 2,048 queries meet the window's
+# edge; whisper's decoder prompts are its published context, 448 tokens, over
+# 1,500 stub frames
+HYBRID_ARCH, HYBRID_PROMPT = "recurrentgemma-9b", 4096
+ENCDEC_ARCH, ENCDEC_PROMPT = "whisper-large-v3", 448
+# (b) the ring wrap: one pattern unit (rec, rec, attn: `--layers 3`) at full
+# width in f32, decode teacher-forced over the window and 64 tokens more
+# against the forward over the same tokens (its attention on the CUDA cores
+# at D 256, S 2,112); F32_REL_TOL, as phase 10's f32 decode against forward
+RING_WRAP = dict(batch=2, tokens=2112, layers=3)
+# whisper's f32 checks on its first 2 encoder and 2 decoder layers
+ENCDEC_F32_LAYERS = 2
+
+
+def _hybrid_layers_h(cfg, params, toks) -> dict:
+    """Griffin, per attention layer, fed the kernel route's input: the
+    largest ||a - b|| / ||b|| of h by pair of routes."""
+    import torch
+
+    from repro_torch.models import griffin
+    from repro_torch.models import layers as L
+
+    worst = dict.fromkeys(ROUTE_PAIRS, 0.0)
+    with torch.no_grad():
+        x = params.embed[toks].to(L.torch_dtype(cfg))
+        positions = torch.arange(x.shape[1], device=x.device)
+        for kind, sp in griffin.layers(params):
+            if kind == "attn":
+                _worst(worst, _routes_h(cfg, sp.temporal, L.rmsnorm(x, sp.ln1, cfg.norm_eps),
+                                        positions, causal=True))
+            x, _ = griffin.sub_apply(cfg, kind, sp, x, positions)
+    return worst
+
+
+def _encdec_layers_h(cfg, params, toks, fr) -> tuple:
+    """Whisper, per layer, fed the kernel route's input: the largest
+    ||a - b|| / ||b|| of h by pair of routes over the encoder's
+    (non-causal) and the decoder's (causal) self-attention."""
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+
+    enc, dec = dict.fromkeys(ROUTE_PAIRS, 0.0), dict.fromkeys(ROUTE_PAIRS, 0.0)
+    with torch.no_grad():
+        x = fr.to(L.torch_dtype(cfg))
+        x = x + encdec.sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for bp in params.enc_blocks:
+            h = _routes_h(cfg, bp.attn, L.rmsnorm(x, bp.ln1, cfg.norm_eps), positions,
+                          causal=False)
+            _worst(enc, h)
+            x = x + h["kernel"]
+            x = x + L.gelu_mlp_apply(bp.mlp, L.rmsnorm(x, bp.ln2, cfg.norm_eps))
+        enc_out = L.rmsnorm(x, params.enc_ln, cfg.norm_eps)
+        y = params.embed[toks].to(L.torch_dtype(cfg))
+        positions = torch.arange(y.shape[1], device=y.device)
+        for bp in params.dec_blocks:
+            _worst(dec, _routes_h(cfg, bp.attn, L.rmsnorm(y, bp.ln1, cfg.norm_eps), positions,
+                                  causal=True))
+            y, _, _ = encdec.dec_block(cfg, bp, y, positions, enc_out)
+    return enc, dec
+
+
+def _phase19_hybrid(dev) -> tuple:
+    """(a) recurrentgemma-9b uncut, bf16: prefill of 4 x 4,096, greedy
+    decode, the checks; (b) one unit in f32: decode through the wrapped ring
+    against the forward.  Returns (the path's launches, the attention
+    record, the model's readings)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts
+    from repro_torch.models.registry import get_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SERVE["seed"]), dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    B, P = SERVE["batch"], HYBRID_PROMPT
+    toks = torch.from_numpy(
+        np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (B, P))).to(dev)
+    attn = _attn_at(cfg, B, P, dev, 600)
+    label = f"{cfg.name} ({cfg.n_layers} layers, {n_params} params, bf16)"
+    logits, prompt_logits, prefill_l, launches, rec = _serve_walk(
+        model, params, {"tokens": toks}, dev, label)
+    kernel, n_attn = "flash_attention.tensor_core", _attention_layers(cfg)
+    check(prefill_l == {kernel: n_attn}, f"{cfg.name}: prefill launches {prefill_l}, want "
+          f"{n_attn} {kernel} (one per attention layer, D 256 on the tensor cores)")
+    check(launches == prefill_l, f"{cfg.name}: decode launched {launches}")
+    print(f"[smoke] {cfg.name}: set-up and serving {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    walk = toks[:, -DECODE_WALK:]
+    rec["bf16_decode"] = _rel(prompt_logits, model.forward(params, {"tokens": walk})[:, -1])
+    check(rec["bf16_decode"] < BF16_DECODE_TOL[HYBRID_ARCH],
+          f"{cfg.name}: bf16 decode vs a forward of the walked tokens {rec['bf16_decode']}")
+    e_h = _hybrid_layers_h(cfg, params, toks)
+    check(e_h["kernel/f64"] < SERVE_H_TOL,
+          f"{cfg.name}: an attention layer's h, kernel vs f64 route {e_h['kernel/f64']}")
+    e_fwd = _witness(cfg, params, toks, logits, None, cfg.name)
+    del logits, prompt_logits
+    torch.cuda.empty_cache()
+    rec.update(h=e_h, forward=e_fwd, checks_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    fmt = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
+    print(f"[smoke] {cfg.name} checks: the attention layers' h (bf16), largest of {fmt(e_h)}; "
+          f"whole bf16 forwards {fmt(e_fwd)}; bf16 decode vs forward of the {DECODE_WALK} walked "
+          f"tokens at the last {rec['bf16_decode']:.4g}; peak memory {rec['checks_peak_gb']:.3f} "
+          f"GB; {time.perf_counter() - t0:.3f} s")
+
+    # (b) the ring wrap at full width, one unit, f32
+    t0 = time.perf_counter()
+    model32, params32 = _f32_copy(cfg, params, dev, layers=RING_WRAP["layers"])
+    del params
+    torch.cuda.empty_cache()
+    c32 = model32.cfg
+    Bw, Tw = RING_WRAP["batch"], RING_WRAP["tokens"]
+    wt = torch.from_numpy(
+        np.random.default_rng(SERVE["seed"] + 1).integers(0, cfg.vocab, (Bw, Tw))).to(dev)
+    counts.reset()
+    full = model32.forward(params32, {"tokens": wt})
+    torch.cuda.synchronize()
+    check(counts.snapshot() == {"flash_attention.cuda_core": 1},
+          f"{cfg.name} f32 unit: forward launches {counts.snapshot()}")
+    rec["f32_forward"] = _rel(full, _forward(c32, params32, wt, "plain"))
+    check(rec["f32_forward"] < F32_REL_TOL,
+          f"{cfg.name} f32 unit: forward kernel vs plain {rec['f32_forward']}")
+    cache = model32.init_decode_cache(Bw, Tw, device=dev)
+    W = cache["groups"][0][2]["k"].shape[1]
+    check(W == cfg.window < Tw, f"{cfg.name}: a ring of {W} slots for {Tw} tokens")
+    counts.reset()
+    sq = torch.zeros(4, dtype=torch.float64, device=dev)  # ||d||^2, ||f||^2 before, after the wrap
+    for t in range(Tw):
+        step = model32.decode_fn(params32, cache, wt[:, t : t + 1])[0][:, 0]
+        part = 2 * int(t >= W)
+        sq[part] += ((step - full[:, t]) ** 2).sum().double()
+        sq[part + 1] += (full[:, t] ** 2).sum().double()
+    torch.cuda.synchronize()
+    check(counts.snapshot() == {}, f"{cfg.name} f32 unit: decode launched {counts.snapshot()}")
+    sq = sq.tolist()
+    rec["f32_decode"] = ((sq[0] + sq[2]) / (sq[1] + sq[3])) ** 0.5
+    rec["f32_decode_wrapped"] = (sq[2] / sq[3]) ** 0.5
+    for what in ("f32_decode", "f32_decode_wrapped"):
+        check(rec[what] < F32_REL_TOL, f"{cfg.name} f32 unit: {what} {rec[what]}")
+    print(f"[smoke] {cfg.name} ring wrap, one unit ({c32.n_layers} layers: rec, rec, attn) at full "
+          f"width in f32, {Bw} x {Tw} tokens through a {W}-slot ring: forward kernel/plain "
+          f"{rec['f32_forward']:.4g}; decode vs forward {rec['f32_decode']:.4g}, over the "
+          f"{Tw - W} steps past the wrap {rec['f32_decode_wrapped']:.4g} (< {F32_REL_TOL}); "
+          f"{time.perf_counter() - t0:.3f} s")
+    del params32, model32, full, cache
+    torch.cuda.empty_cache()
+    return launches[kernel], attn, rec
+
+
+def _phase19_encdec(dev) -> tuple:
+    """(c) whisper-large-v3 uncut, bf16: encode 4 x 1,500 frames, prefill the
+    decoder over 4 x 448 tokens, greedy decode primed with the frames, the
+    checks; f32 on 2 + 2 layers.  Returns (the path's launches, the
+    attention record, the model's readings)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts
+    from repro_torch.models import encdec
+    from repro_torch.models.convert import frames
+    from repro_torch.models.registry import get_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SERVE["seed"]), dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    B, P = SERVE["batch"], ENCDEC_PROMPT
+    toks = torch.from_numpy(
+        np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (B, P))).to(dev)
+    fr = torch.from_numpy(frames(cfg, B, SERVE["seed"])).to(dev)
+    attn = _attn_at(cfg, B, cfg.enc_seq, dev, 601, causal=False)
+    kernel = "flash_attention.tensor_core"
+    encdec.encode(params, fr)  # warm-up
+    counts.reset()
+    encdec.encode(params, fr)
+    torch.cuda.synchronize()
+    check(counts.snapshot() == {kernel: cfg.n_enc_layers},
+          f"{cfg.name}: encode launches {counts.snapshot()}, want {cfg.n_enc_layers} {kernel}")
+    label = (f"{cfg.name} ({cfg.n_enc_layers} + {cfg.n_layers} layers, {n_params} params, "
+             f"{cfg.enc_seq} frames, bf16)")
+    batch = {"tokens": toks, "frames": fr}
+    logits, prompt_logits, prefill_l, launches, rec = _serve_walk(model, params, batch, dev, label)
+    n_attn = _attention_layers(cfg)
+    check(prefill_l == {kernel: n_attn}, f"{cfg.name}: prefill launches {prefill_l}, want "
+          f"{n_attn} {kernel} ({cfg.n_enc_layers} non-causal, {cfg.n_layers} causal)")
+    check(launches == {kernel: n_attn + cfg.n_enc_layers},
+          f"{cfg.name}: decode launched {launches} (prime_cross_cache encodes once)")
+    print(f"[smoke] {cfg.name}: set-up and serving {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    walk = toks[:, -DECODE_WALK:]
+    rec["bf16_decode"] = _rel(prompt_logits,
+                              model.forward(params, {"tokens": walk, "frames": fr})[:, -1])
+    check(rec["bf16_decode"] < BF16_DECODE_TOL[ENCDEC_ARCH],
+          f"{cfg.name}: bf16 decode vs a forward of the walked tokens {rec['bf16_decode']}")
+    e_enc, e_dec = _encdec_layers_h(cfg, params, toks, fr)
+    for what, e in (("encoder", e_enc), ("decoder", e_dec)):
+        check(e["kernel/f64"] < SERVE_H_TOL,
+              f"{cfg.name}: a {what} layer's h, kernel vs f64 route {e['kernel/f64']}")
+    e_fwd = _witness(cfg, params, toks, logits, fr, cfg.name)
+    del logits, prompt_logits
+    rec.update(h_encoder=e_enc, h_decoder=e_dec, forward=e_fwd)
+    fmt = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
+    line = (f"[smoke] {cfg.name} checks: the layers' h (bf16), encoder (non-causal) largest of "
+            f"{fmt(e_enc)}, decoder (causal) {fmt(e_dec)}; whole bf16 forwards {fmt(e_fwd)}; bf16 "
+            f"decode vs forward of the {DECODE_WALK} walked tokens at the last "
+            f"{rec['bf16_decode']:.4g}")
+
+    # f32 on the first layers: kernel vs plain forward, decode vs forward
+    model32, params32 = _f32_copy(cfg, params, dev, layers=ENCDEC_F32_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    c32 = model32.cfg
+    rec["f32_forward"] = _rel(_forward(c32, params32, toks, "kernel", fr),
+                              _forward(c32, params32, toks, "plain", fr))
+    check(rec["f32_forward"] < F32_REL_TOL, f"{cfg.name}: f32 forward, kernel vs plain "
+          f"{rec['f32_forward']}")
+    short = toks[:, :F32_DECODE_PROMPT]
+    full32 = model32.forward(params32, {"tokens": short, "frames": fr})
+    cache = encdec.prime_cross_cache(
+        params32, model32.init_decode_cache(B, short.shape[1], device=dev), fr)
+    steps = torch.cat([model32.decode_fn(params32, cache, short[:, t : t + 1])[0]
+                       for t in range(short.shape[1])], 1)
+    rec["f32_decode"] = _rel(steps, full32)
+    check(rec["f32_decode"] < F32_REL_TOL, f"{cfg.name}: f32 decode vs forward {rec['f32_decode']}")
+    print(f"{line}; f32 on the first {c32.n_enc_layers} + {c32.n_layers} layers: forward "
+          f"kernel/plain {rec['f32_forward']:.4g}, decode vs forward over {F32_DECODE_PROMPT} "
+          f"tokens {rec['f32_decode']:.4g}; {time.perf_counter() - t0:.3f} s")
+    del params32, model32, full32, steps, cache
+    torch.cuda.empty_cache()
+    return launches[kernel], attn, rec
+
+
+def phase_hybrid_encdec(dev) -> dict:
+    """(a) the recurrentgemma and whisper goldens; then recurrentgemma-9b
+    and whisper-large-v3 at full width.  Returns the paths' tensor-core
+    attention launches, the attention times at these shapes and each
+    model's readings."""
+    phase_golden_lm(dev, families=("hybrid", "encdec"))
+    out = {"launches": 0, "attention": [], "models": {}}
+    for name, run in ((HYBRID_ARCH, _phase19_hybrid), (ENCDEC_ARCH, _phase19_encdec)):
+        launches, attn, rec = run(dev)
+        out["launches"] += launches
+        out["attention"].append(attn)
+        out["models"][name] = rec
+    return out
+
+
+# the attention kernels' instantiations that must be in the libraries, by
+# Itanium-mangled template arguments: the CUDA-core kernel's 16-chunk
+# accumulator (D 256) in f32 and bf16, the tensor-core kernel's 1, 2 and 4
+# panels (D 64, 128, 256)
+ATTENTION_INSTANTIATIONS = {
+    "flash_attention": {"f32 DC 16": "flash_attention_kernelIfLi16E",
+                        "bf16 DC 16": "flash_attention_kernelI13__nv_bfloat16Li16E"},
+    "flash_attention_wgmma": {f"NP {n}": f"flash_attention_wgmma_kernelILi{n}E" for n in (1, 2, 4)},
+}
+
+
+def attention_resources(build) -> None:
+    """Every kernel function in the two attention libraries, as
+    ``cuobjdump -res-usage`` reads them from the built file (so on every
+    run, built in this process or not): no stack frame and no local memory,
+    that is, no register spill.  Fails unless the D 256 instantiations
+    (``ATTENTION_INSTANTIATIONS``) are among them."""
+    for name, want in ATTENTION_INSTANTIATIONS.items():
+        text = subprocess.run(
+            [build.cuda_tool("cuobjdump"), "-res-usage", str(build.library_path(name))],
+            capture_output=True, text=True, check=True, timeout=300,
+        ).stdout
+        usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+)",
+                                text))
+        for what, mangled in want.items():
+            found = [u for f, u in usage.items() if mangled in f]
+            check(len(found) == 1, f"{name}: {len(found)} res-usage entries for {what} "
+                  f"({mangled}) in {sorted(usage)}")
+            print(f"[smoke] {name} {what}: {found[0]}")
+        for f, u in usage.items():
+            check(" STACK:0 " in u and u.endswith(" LOCAL:0"),
+                  f"{name}: {f} spills to local memory: {u}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper-max-rounds", type=int, default=PAPER_MAX_ROUNDS,
@@ -3846,6 +4258,9 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[smoke]   {name}: {line.strip()}")
+    # the attention kernels, D 256 instantiations included, hold everything
+    # in registers: no local-memory spill, read from the built libraries
+    attention_resources(build)
     # the tensor-core attention kernel must hold wgmma (HGMMA in SASS)
     sass = subprocess.run(
         [build.cuda_tool("cuobjdump"), "-sass", str(build.library_path("flash_attention_wgmma"))],
@@ -3977,6 +4392,17 @@ def main() -> None:
     attn["moe_vlm_shapes"] = moe_vlm["attention"]
     check(attn["moe_vlm_launches"] == sum(n or 40 for _, n in MOE_VLM),
           f"phase 18 launched {attn['moe_vlm_launches']} tensor-core flash_attention")
+    # and Griffin's local attention (D 256) and Whisper's encoder and decoder its third
+    hybrid_encdec = timed("hybrid_encdec", phase_hybrid_encdec, dev)
+    attn["hybrid_encdec_launches"] = hybrid_encdec["launches"]
+    attn["hybrid_encdec_path"] = (
+        "recurrentgemma-9b's prefill (38 layers, 12 of them local attention at D 256, 4 x "
+        "4,096 tokens) and whisper-large-v3's (32 + 32 layers: 32 non-causal encoder launches "
+        "over 1,500 frames, 32 causal over 448 tokens) with the 32 encoder launches of its "
+        "prime_cross_cache, bf16, phase 19")
+    attn["hybrid_encdec_shapes"] = hybrid_encdec["attention"]
+    check(attn["hybrid_encdec_launches"] == 12 + 64 + 32,
+          f"phase 19 launched {attn['hybrid_encdec_launches']} tensor-core flash_attention")
 
     print(f"[smoke] phase walls (s): {walls}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -22,7 +22,10 @@
 // (i < 4): it computes a 4 x 4 block of scores (keys t % 16 + 16 c), four
 // threads per row reduce the row's max and sum with shuffles, and the thread
 // keeps a 4 x (D / 16) block of the accumulator (columns t % 16 + 16 x) in
-// registers.  Any D up to 128 is taken; columns >= D are masked.
+// registers.  Any D up to 256 is taken; columns >= D are masked.  At D 256
+// the accumulator is 64 registers a thread and the block's shared memory
+// 169 KB (q 32 KB, K 64 KB, V 64 KB, P 8 KB; opted in above 48 KB), one
+// block an SM: recurrentgemma's f32 path (window 2048, one KV head).
 //
 // What bounds it.  At the prefill shape (B 4, S 1024, 16 heads of 64, causal,
 // bf16) it moves 34 MB and does 8.6 GFLOP: 0.010 ms at 3.35 TB/s, 0.009 ms on
@@ -45,7 +48,7 @@ constexpr int kThreads = 128;
 constexpr int kLanesPerRowGroup = 16;         // threads sharing 4 rows
 constexpr int kRows = 4;                      // rows per thread
 constexpr int kKeys = kBk / kLanesPerRowGroup;  // keys per thread in a tile: 4
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxGridY = 65535;
 
@@ -82,7 +85,7 @@ size_t smem_bytes(int D) {
           static_cast<size_t>(kBk) * D + kBq * kBk + 3 * kBq);
 }
 
-// DC = column chunks of 16 per thread: ceil(D / 16) rounded up to 1, 2, 4, 8
+// DC = column chunks of 16 per thread: ceil(D / 16) rounded up to 1, 2, 4, 8, 16
 template <typename T, int DC>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -258,7 +261,8 @@ int dispatch(const Params& p, cudaStream_t stream) {
   if (chunks <= 1) return launch<T, 1>(p, stream);
   if (chunks <= 2) return launch<T, 2>(p, stream);
   if (chunks <= 4) return launch<T, 4>(p, stream);
-  return launch<T, 8>(p, stream);
+  if (chunks <= 8) return launch<T, 8>(p, stream);
+  return launch<T, 16>(p, stream);
 }
 
 }  // namespace

@@ -13,13 +13,13 @@
 // Design.  Grid (ceil(Sq / 64), B * Hq), the q tiles with the most keys first.
 // A block is one consumer warpgroup (warps 0-3: 64 query rows of one query
 // head) and one producer warp (warp 4).  The producer's lane 0 loads the q
-// tile once and then K/V tiles of 64 keys into a ring of kStages stages with
+// tile once and then K/V tiles of BK keys into a ring of kStages stages with
 // TMA (cp.async.bulk.tensor.4d over the (D, S, H, B) strides of q, k and v, so
 // no transpose or padding: rows past Sq or Sk and columns past D are filled
 // with zeros), 128-byte swizzled, each stage completing on its `full`
 // mbarrier; the consumer warps release a stage on its `empty` mbarrier, so the
 // copy of tile j + 1 runs under the products of tile j.  Per tile:
-//   S = Q K^T    wgmma m64n64k16, both operands K-major in shared memory;
+//   S = Q K^T    wgmma m64nBKk16, both operands K-major in shared memory;
 //   online softmax in f32 in the accumulator registers: thread t holds rows
 //                16 (t / 32) + (t % 32) / 4 (+ 8), a row spread over 4 threads
 //                (max and sum by quad shuffles); the scale (times log2 e, for
@@ -31,9 +31,18 @@
 // product: a P rounded to bf16 alone puts ~2^-9 of a row's |p v| into every
 // output element, more than one bf16 step of an output that nearly cancels;
 // hi + lo keeps ~16 bits.  The tile bounds lo/hi are the TPU kernel's
-// (kernel.py:52-59).  D is padded in shared memory to 64 or 128 (one or two
-// 64-column panels); the wrapper sends here only bf16 with D % 16 == 0, D <=
-// 128 and 16-byte-aligned strides and base pointers (TMA's rule).
+// (kernel.py:52-59).  D is padded in shared memory to 64, 128 or 256 (NP =
+// 1, 2 or 4 64-column panels); the wrapper sends here only bf16 with D % 16
+// == 0, D <= 256 and 16-byte-aligned strides and base pointers (TMA's rule).
+//
+// D 256 (recurrentgemma's local attention) and the register file.  The O
+// accumulator of a 64-row warpgroup at D 256 is 128 f32 registers a thread;
+// at BK = 64 the S tile (32) and the three P terms (48) would put the
+// consumer at the 255-register limit before any addressing.  So at four
+// panels a K/V tile is BK = 32 keys: S is 16 registers, P 24 (m64n32k16 for
+// S, m64n256k16 for P V, two k-steps of 16 keys a tile).  Shared memory: q
+// 32 KB, a stage of K and V 2 x 4 x 4 KB, 96 KB in all at two stages.  Up to
+// D 128 BK stays 64.
 //
 // cuTensorMapEncodeTiled is taken from the driver through
 // cudaGetDriverEntryPoint, so the library links no -lcuda.
@@ -41,6 +50,8 @@
 // What bounds it.  At qwen1.5-0.5b's prefill (B 4, S 1024, 16 heads of 64,
 // causal) the call moves 34 MB (0.010 ms at 3.35 TB/s) and does 8.6 GFLOP of
 // products (0.009 ms at 989 TFLOP/s bf16; 12.9 GFLOP with P in two terms).
+// At recurrentgemma-9b's prefill (B 4, S 4096, 16/1 heads of 256, causal,
+// window 2048) 412 GFLOP over 402.7 M unmasked pairs: 0.417 ms.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -51,12 +62,13 @@
 namespace {
 
 constexpr int kBq = 64;                 // query rows per block: one wgmma M
-constexpr int kBk = 64;                 // keys per K/V tile
+constexpr int kBk = 64;                 // keys per K/V tile up to D 128
+constexpr int kBkWide = 32;             // keys per K/V tile at D 256 (four panels)
 constexpr int kStages = 2;              // K/V ring depth
 constexpr int kConsumers = 128;         // one warpgroup
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kPanelCols = 64;          // bf16 columns of one 128-byte swizzled row
-constexpr int kPanelBytes = 64 * 128;   // (64 rows x 64 columns) bf16: 8 KB
+constexpr int kPanelBytes = 64 * 128;   // (64 rows x 64 columns) bf16: 8 KB, a q panel
 constexpr int kPSplit = 3;              // bf16 terms of P
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxGridY = 65535;
@@ -65,6 +77,11 @@ constexpr int kMaxGridY = 65535;
 // kNoEncoder
 constexpr int kEncodeError = 100000;
 constexpr int kNoEncoder = 200000;
+
+// keys per K/V tile of the NP-panel kernel, and the bytes of one of its K or V
+// panels (that many 128-byte rows)
+__host__ __device__ constexpr int keys_per_tile(int np) { return np == 4 ? kBkWide : kBk; }
+__host__ __device__ constexpr int kv_panel_bytes(int np) { return keys_per_tile(np) * 128; }
 
 struct Params {
   __nv_bfloat16* o;
@@ -124,16 +141,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 // in bits 62-63), addresses and offsets in 16-byte units.  K-major (q and k:
 // rows of 64 bf16 along the product's K): stride 1024 B between 8-row groups,
 // the leading offset unused.  MN-major (v, read transposed): stride 1024 B
-// between groups of 8 keys (the product's K), leading offset one panel
-// between the 64-column halves of D = 128.
+// between groups of 8 keys (the product's K), leading offset one K/V panel
+// (`panel` bytes) between the 64-column panels of D.
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t panel) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kPanelBytes >> 4) << 16) |
+         (static_cast<uint64_t>(panel >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -167,6 +184,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 32) (+)= A (64 x 16, shared, K-major) * B (32 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -206,7 +236,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// NP: 64-column panels of D (1: D <= 64, 2: D <= 128)
+// D (64 x 256) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// NP: 64-column panels of D (1: D <= 64, 2: D <= 128, 4: D <= 256); BK keys a
+// K/V tile: 64, or 32 at four panels, where the O accumulator alone is 128
+// registers a thread and S (BK / 2) and P (kPSplit * BK / 4) must fit beside it
 template <int NP>
 __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -217,8 +283,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
   __shared__ __align__(8) uint64_t q_bar;
   // swizzled tiles start on 1024-byte boundaries
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  constexpr int BK = keys_per_tile(NP);
+  constexpr int KVP = kv_panel_bytes(NP);
   const uint32_t k_s = q_s + NP * kPanelBytes;
-  const uint32_t v_s = k_s + kStages * NP * kPanelBytes;
+  const uint32_t v_s = k_s + kStages * NP * KVP;
 
   const int tid = threadIdx.x;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;
@@ -228,11 +296,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
   const int q_offset = p.Sk - p.Sq;
 
   // the TPU kernel's tile bounds (kernel.py:52-59)
-  const int nblocks = (p.Sk + kBk - 1) / kBk;
+  const int nblocks = (p.Sk + BK - 1) / BK;
   int hi = nblocks;
-  if (p.causal) hi = min((q0 + kBq - 1 + q_offset) / kBk + 1, nblocks);
+  if (p.causal) hi = min((q0 + kBq - 1 + q_offset) / BK + 1, nblocks);
   int lo = 0;
-  if (p.window > 0) lo = max((q0 + q_offset - p.window + 1) / kBk, 0);
+  if (p.window > 0) lo = max((q0 + q_offset - p.window + 1) / BK, 0);
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -252,11 +320,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
       for (int j = lo; j < hi; ++j) {
         const int it = j - lo, st = it % kStages;
         if (it >= kStages) mbar_wait(&empty_bar[st], ((it / kStages) - 1) & 1);
-        mbar_expect_tx(&full_bar[st], 2 * NP * kPanelBytes);
+        mbar_expect_tx(&full_bar[st], 2 * NP * KVP);
         for (int c = 0; c < NP; ++c) {
-          const uint32_t off = (st * NP + c) * kPanelBytes;
-          tma_load_4d(k_s + off, &tk, &full_bar[st], c * kPanelCols, j * kBk, hk, b);
-          tma_load_4d(v_s + off, &tv, &full_bar[st], c * kPanelCols, j * kBk, hk, b);
+          const uint32_t off = (st * NP + c) * KVP;
+          tma_load_4d(k_s + off, &tk, &full_bar[st], c * kPanelCols, j * BK, hk, b);
+          tma_load_4d(v_s + off, &tv, &full_bar[st], c * kPanelCols, j * BK, hk, b);
         }
       }
     }
@@ -279,15 +347,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
     mbar_wait(&full_bar[st], (it / kStages) & 1);
 
     // S = Q K^T: 4 * NP k-steps of 16 columns of D (32 bytes within a panel)
-    float s[32];
+    float s[BK / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NP; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss(s, desc_kmajor(q_s + off), desc_kmajor(k_s + st * NP * kPanelBytes + off), kk > 0);
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss(s, desc_kmajor(q_s + (kk / 4) * kPanelBytes + col),
+               desc_kmajor(k_s + (st * NP + kk / 4) * KVP + col), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -295,12 +364,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
 
     // scale, mask, tile max.  s[i] is row r0 + 8 * ((i >> 1) & 1), column
     // 8 * (i / 4) + c0 + (i & 1) of the tile
-    const int k0 = j * kBk;
-    const bool edge = k0 + kBk > p.Sk || (p.causal && k0 + kBk - 1 > q0 + q_offset) ||
+    const int k0 = j * BK;
+    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 + q_offset) ||
                       (p.window > 0 && k0 <= q0 + kBq - 1 + q_offset - p.window);
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int h = (i >> 1) & 1;
       float x = s[i] * p.scale_log2;
       if (edge) {
@@ -326,7 +395,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
         if (((i >> 1) & 1) == h) o[i] *= alpha;
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int h = (i >> 1) & 1;
       s[i] = exp2f(s[i] - m_run[h]);
       l_part[h] += s[i];
@@ -334,9 +403,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
 
     // P as kPSplit bf16 terms, in the A-fragment layout: for k-step kk (keys
     // 16 kk ..), register rr holds s[8 kk + 2 rr], s[8 kk + 2 rr + 1]
-    uint32_t a[kPSplit][4][4];
+    uint32_t a[kPSplit][BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         float x0 = s[8 * kk + 2 * rr], x1 = s[8 * kk + 2 * rr + 1];
@@ -354,8 +423,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = desc_mnmajor(v_s + st * NP * kPanelBytes + kk * 16 * 128);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = desc_mnmajor(v_s + st * NP * KVP + kk * 16 * 128, KVP);
 #pragma unroll
       for (int t = 0; t < kPSplit; ++t) wgmma_rs(o, a[t][kk], dv);
     }
@@ -414,16 +483,16 @@ EncodeTiledFn encoder() {
 }
 
 // a 4-D map over (D, S, H, B) with element strides (ss, sh, sb), boxes of 64
-// columns x 64 rows, 128-byte swizzle, zeros out of bounds
+// columns x `rows` rows, 128-byte swizzle, zeros out of bounds
 int encode(CUtensorMap* map, const void* base, int D, int S, int H, int B, long long ss,
-           long long sh, long long sb) {
+           long long sh, long long sb, int rows) {
   const EncodeTiledFn fn = encoder();
   if (fn == nullptr) return kNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kPanelCols, kBk, 1, 1};
+  const cuuint32_t box[4] = {kPanelCols, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                           strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -435,7 +504,8 @@ int encode(CUtensorMap* map, const void* base, int D, int S, int H, int B, long 
 template <int NP>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
            int B, cudaStream_t stream) {
-  const int smem = (1 + 2 * kStages) * NP * kPanelBytes + 1024;  // + alignment slack
+  // q's panels, then kStages stages of K and V panels, + alignment slack
+  const int smem = NP * kPanelBytes + 2 * kStages * NP * kv_panel_bytes(NP) + 1024;
   static bool opted_in = false;  // above 48 KB only as opted-in dynamic shared memory
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -461,19 +531,23 @@ extern "C" int flash_attention_wgmma_launch(
     int Hkv, int D, long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, int causal, int window,
     float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || D <= 0 || D > 2 * kPanelCols ||
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || D <= 0 || D > 4 * kPanelCols ||
       D % 16 != 0 || Hq % Hkv != 0 || static_cast<long long>(B) * Hq > kMaxGridY) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int np = D <= kPanelCols ? 1 : D <= 2 * kPanelCols ? 2 : 4;
+  const int bk = np == 4 ? keys_per_tile(4) : kBk;  // K/V box rows
   CUtensorMap tq, tk, tv;
-  int rc = encode(&tq, q, D, Sq, Hq, B, qss, qsh, qsb);
-  if (rc == 0) rc = encode(&tk, k, D, Sk, Hkv, B, kss, ksh, ksb);
-  if (rc == 0) rc = encode(&tv, v, D, Sk, Hkv, B, vss, vsh, vsb);
+  int rc = encode(&tq, q, D, Sq, Hq, B, qss, qsh, qsb, kBq);
+  if (rc == 0) rc = encode(&tk, k, D, Sk, Hkv, B, kss, ksh, ksb, bk);
+  if (rc == 0) rc = encode(&tv, v, D, Sk, Hkv, B, vss, vsh, vsb, bk);
   if (rc != 0) return rc;
   const Params p{static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hkv, D, causal, window,
                  scale * 1.4426950408889634f};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D <= kPanelCols ? launch<1>(tq, tk, tv, p, B, s) : launch<2>(tq, tk, tv, p, B, s);
+  if (np == 1) return launch<1>(tq, tk, tv, p, B, s);
+  if (np == 2) return launch<2>(tq, tk, tv, p, B, s);
+  return launch<4>(tq, tk, tv, p, B, s);
 }
 
 extern "C" const char* flash_attention_wgmma_error_string(int code) {

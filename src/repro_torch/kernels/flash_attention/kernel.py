@@ -8,16 +8,19 @@ the same function, each built with nvcc for ``sm_90a`` on first use
 * ``tensor_core`` (``csrc/flash_attention_wgmma.cu``): bf16 on Hopper's
   tensor cores, ``wgmma`` fed by a two-stage TMA ring of K/V tiles, one
   consumer warpgroup per 64-query tile, the online softmax in registers, P
-  carried as a bf16 hi + lo pair;
+  carried as three bf16 terms; 64-key tiles up to D 128, 32-key tiles at D
+  up to 256 (four 64-column panels), where the 128-register O accumulator
+  leaves no room for a 64-key S and P;
 * ``cuda_core`` (``csrc/flash_attention.cu``): f32 products on the CUDA
-  cores, f32 or bf16 inputs, any D <= 128.
+  cores, f32 or bf16 inputs, any D <= 256.
 
 ``select_variant`` is the dispatch rule, a pure function of dtype, head size,
-strides and base pointers: bf16 with D % 16 == 0, D <= 128 and TMA's 16-byte
+strides and base pointers: bf16 with D % 16 == 0, D <= 256 and TMA's 16-byte
 alignment of strides and bases goes to the tensor cores (the transformer
-prefill: qwen1.5 at D 64, starcoder2 at D 128); every f32 call and any other
-bf16 shape (D = 8, say) to the CUDA cores, whose f32 products the f32
-tolerances (1e-5) need.  It is a dispatch by shape, not a fallback: a failed
+prefill: qwen1.5 at D 64, starcoder2 at D 128; recurrentgemma's local
+attention at D 256; whisper's encoder and decoder at D 64); every f32 call
+and any other bf16 shape (D = 8, say) to the CUDA cores, whose f32 products
+the f32 tolerances (1e-5) need.  It is a dispatch by shape, not a fallback: a failed
 launch of either variant raises.  Each variant counts its own launches
 (``flash_attention.tensor_core``, ``flash_attention.cuda_core``), and
 ``variant=`` names one explicitly so that tests and ``chip_smoke.py`` can time
@@ -46,8 +49,8 @@ import torch
 
 from repro_torch.kernels import build, counts
 
-BLOCK_K = 64  # keys per tile of both kernels (kBk)
-MAX_HEAD_DIM = 128
+BLOCK_K = 64  # the plain version's key block: Pallas', CUDA-core's, tensor-core's to D 128
+MAX_HEAD_DIM = 256
 VARIANTS = ("tensor_core", "cuda_core")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,7 +86,7 @@ def _launcher(variant: str):
 
 def select_variant(dtype: torch.dtype, head_dim: int, strides, data_ptrs) -> str:
     """The dispatch rule: ``"tensor_core"`` for bf16 with ``head_dim`` a
-    multiple of 16 up to 128, every stride in ``strides`` (elements) a
+    multiple of 16 up to 256, every stride in ``strides`` (elements) a
     multiple of 8 and every address in ``data_ptrs`` a multiple of 16 (TMA
     reads 16-byte-aligned rows); ``"cuda_core"`` for everything else, every
     f32 call included."""

@@ -8,8 +8,9 @@ are kept one by one: rmsnorm and rope compute in f32 and cast back to x's
 dtype; matmuls run in the parameters' dtype.
 
 Left out: ``SCAN_UNROLL``, ``REMAT_POLICY`` and the sharding calls, which
-serve only XLA lowering; the GELU MLP, which serves only the enc-dec family
-(ROADMAP queue 1, item 14d).
+serve only XLA lowering.  ``jax.nn.gelu`` defaults to the tanh
+approximation, so the GELU MLP (Griffin, Whisper) uses
+``F.gelu(approximate="tanh")``, not torch's default erf.
 """
 
 from __future__ import annotations
@@ -92,11 +93,13 @@ def attention_apply(
     x: torch.Tensor,  # (B, S, d)
     positions: torch.Tensor,  # (S,) or (B, S)
     *,
+    causal: bool = True,
+    window: int | None = None,
     cache: tuple | None = None,  # (k_cache, v_cache, cache_len) for decode
     attn_impl: str = "kernel",
 ):
-    """Causal attention, over ``cfg.window`` keys when the config sets one.
-    Returns (out (B, S, d), new_cache | None).
+    """Attention with JAX's keywords: causal or bidirectional (an encoder),
+    over ``window`` keys when given.  Returns (out (B, S, d), new_cache | None).
 
     With a cache, the new keys and values are written into ``k_cache`` and
     ``v_cache`` in place (the JAX package returns updated copies), at
@@ -105,7 +108,7 @@ def attention_apply(
     valid-length mask of ``_cached_attention``.
     """
     B, S, d = x.shape
-    H, KV, Dh, window = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.window
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = x @ p.wq
     k = x @ p.wk
     v = x @ p.wv
@@ -123,7 +126,7 @@ def attention_apply(
         out = _cached_attention(q, k_cache, v_cache, cache_len, window)
         new_cache = (k_cache, v_cache, cache_len + S)
     else:
-        out = attention_op(q, k, v, causal=True, window=window, impl=attn_impl)
+        out = attention_op(q, k, v, causal=causal, window=window, impl=attn_impl)
         new_cache = None
     out = out.reshape(B, S, H * Dh) @ p.wo
     return out, new_cache
@@ -177,3 +180,19 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU."""
     return (F.silu(x @ p.w1) * (x @ p.w3)) @ p.w2
+
+
+class GeluMLP(nn.Module):
+    """wi (d, f), wo (f, d)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        dt = torch_dtype(cfg)
+        self.wi = dense(d, f, dt, generator, device)
+        self.wo = dense(f, d, dt, generator, device)
+
+
+def gelu_mlp_apply(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    """GELU with JAX's default tanh approximation."""
+    return F.gelu(x @ p.wi, approximate="tanh") @ p.wo

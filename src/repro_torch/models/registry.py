@@ -8,11 +8,13 @@ The port of ``repro/models/registry.py``.  ``get_model(cfg)`` returns a
   init_decode_cache(batch, max_len, device=None) -> cache
   decode_fn(params, cache, tokens) -> (logits, cache)
 
-for the ``dense``, ``moe``, ``vlm`` and ``ssm`` families; a ``vlm`` batch
-may carry ``patch_embeds`` (B, n_patches, d), prepended to the tokens as the
-JAX facade's ``fwd`` does.  The other families are refused with their
-ROADMAP item.  Serving only: ``loss_fn`` and ``batch_spec`` wait with
-training (ROADMAP queue 1, item 14f).
+for every family the JAX package serves: ``dense``, ``moe``, ``vlm``,
+``ssm``, ``hybrid`` (Griffin) and ``encdec`` (Whisper).  A ``vlm`` batch may
+carry ``patch_embeds`` (B, n_patches, d), prepended to the tokens as the JAX
+facade's ``fwd`` does; an ``encdec`` batch carries ``frames`` (B, enc_seq,
+d).  An unknown family raises ``ValueError``, as JAX's ``get_model`` does.
+Serving only: ``loss_fn`` and ``batch_spec`` wait with training (ROADMAP
+queue 1, item 14f).
 """
 
 from __future__ import annotations
@@ -21,13 +23,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer
-
-# family -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "hybrid": "ROADMAP queue 1, item 14c",
-    "encdec": "ROADMAP queue 1, item 14d",
-}
+from repro_torch.models import encdec, griffin, rwkv6, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,14 +57,34 @@ def _rwkv_model(cfg: ModelConfig) -> Model:
     )
 
 
+def _griffin_model(cfg: ModelConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda generator=None, device=None: griffin.init_lm(cfg, generator, device),
+        forward=lambda params, batch: griffin.forward(params, batch["tokens"]),
+        init_decode_cache=lambda b, m, device=None: griffin.init_decode_cache(cfg, b, m, device),
+        decode_fn=griffin.decode_fn,
+    )
+
+
+def _encdec_model(cfg: ModelConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda generator=None, device=None: encdec.init_lm(cfg, generator, device),
+        forward=lambda params, batch: encdec.forward(
+            params, batch["tokens"], frames=batch["frames"]),
+        init_decode_cache=lambda b, m, device=None: encdec.init_decode_cache(cfg, b, m, device),
+        decode_fn=encdec.decode_fn,
+    )
+
+
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({NOT_PORTED[cfg.family]})"
-        )
     if cfg.family in ("dense", "moe", "vlm"):
         return _transformer_model(cfg)
     if cfg.family == "ssm":
         return _rwkv_model(cfg)
+    if cfg.family == "hybrid":
+        return _griffin_model(cfg)
+    if cfg.family == "encdec":
+        return _encdec_model(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -66,7 +66,7 @@ def block_apply(cfg, bp: Block, x, positions, attn_impl="kernel", cache=None):
     layer's MoE aux loss, an f32 0 without experts)."""
     h, new_kv = L.attention_apply(
         cfg, bp.attn, L.rmsnorm(x, bp.ln1, cfg.norm_eps), positions,
-        cache=cache, attn_impl=attn_impl,
+        causal=True, window=cfg.window, cache=cache, attn_impl=attn_impl,
     )
     x = x + h
     y = L.rmsnorm(x, bp.ln2, cfg.norm_eps)

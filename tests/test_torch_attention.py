@@ -5,7 +5,8 @@ The same numpy inputs go through JAX's ``attention_ref``,
 interpret mode) and through the port's ``attention_ref``,
 ``blockwise_attention`` and ``attention_op`` (its CPU route: the kernel's
 plain version).  JAX's CASES and tolerances (1e-5 in f32, 2e-2 in bf16,
-``tests/test_kernels_attention.py``).
+``tests/test_kernels_attention.py``), and three cases at head size 256
+(window, MQA, one query, non-causal).
 """
 
 import jax.numpy as jnp
@@ -32,6 +33,11 @@ CASES = [
     dict(B=1, Sq=70, Sk=70, Hq=2, Hkv=1, D=32, causal=True, window=None),
     dict(B=1, Sq=1, Sk=77, Hq=4, Hkv=2, D=64, causal=True, window=24),
     dict(B=3, Sq=33, Sk=33, Hq=6, Hkv=3, D=8, causal=True, window=16),
+    # recurrentgemma's local attention: D 256, one KV head (MQA), a window
+    dict(B=1, Sq=80, Sk=80, Hq=4, Hkv=1, D=256, causal=True, window=24),
+    dict(B=2, Sq=1, Sk=45, Hq=2, Hkv=1, D=256, causal=True, window=16),
+    # whisper's encoder: non-causal, a key tail off the block size
+    dict(B=1, Sq=70, Sk=70, Hq=2, Hkv=2, D=256, causal=False, window=None),
 ]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

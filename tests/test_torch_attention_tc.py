@@ -35,7 +35,7 @@ CASES = [
     dict(B=3, Sq=33, Sk=33, Hq=6, Hkv=3, D=8, causal=True, window=16),
 ]
 P_TERMS = 3  # bf16 terms of P in csrc/flash_attention_wgmma.cu (kPSplit)
-TILE = 64  # keys per tile (kBk)
+TILE = 64  # keys per tile (kBk); 32 above D 128 (kBkWide: four panels)
 
 
 def one_step_bad(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -52,6 +52,7 @@ def tc_emulation(q, k, v, *, causal, window, p_terms):
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
     scale_log2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    tile = TILE if D <= 128 else TILE // 2
     qh = q.float().transpose(1, 2)  # (B, Hq, Sq, D)
     kh = k.float().transpose(1, 2).repeat_interleave(G, 1)
     vh = v.float().transpose(1, 2).repeat_interleave(G, 1)
@@ -59,9 +60,9 @@ def tc_emulation(q, k, v, *, causal, window, p_terms):
     acc = torch.zeros(B, Hq, Sq, D)
     m = torch.full((B, Hq, Sq, 1), -1e30)
     l = torch.zeros(B, Hq, Sq, 1)
-    for k0 in range(0, Sk, TILE):
-        kpos = torch.arange(k0, min(k0 + TILE, Sk))
-        s = (qh @ kh[:, :, k0 : k0 + TILE].transpose(-1, -2)) * scale_log2
+    for k0 in range(0, Sk, tile):
+        kpos = torch.arange(k0, min(k0 + tile, Sk))
+        s = (qh @ kh[:, :, k0 : k0 + tile].transpose(-1, -2)) * scale_log2
         mask = torch.ones(Sq, len(kpos), dtype=torch.bool)
         if causal:
             mask &= kpos[None] <= qpos[:, None]
@@ -76,7 +77,7 @@ def tc_emulation(q, k, v, *, causal, window, p_terms):
         rest = p
         for _ in range(p_terms):  # each bf16 term its own P V product
             term = rest.to(torch.bfloat16).float()
-            acc = acc + term @ vh[:, :, k0 : k0 + TILE]
+            acc = acc + term @ vh[:, :, k0 : k0 + tile]
             rest = rest - term
         m = m_new
     return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(torch.bfloat16)
@@ -107,7 +108,9 @@ def jax_out(q, k, v, **kw) -> torch.Tensor:
         (torch.float16, 64, [65536, 1024, 64], [0, 0, 0], "cuda_core"),
         (torch.bfloat16, 8, [8, 8, 8], [0, 0, 0], "cuda_core"),
         (torch.bfloat16, 24, [24, 48, 96], [0, 0, 0], "cuda_core"),
-        (torch.bfloat16, 144, [144, 288, 576], [0, 0, 0], "cuda_core"),
+        (torch.bfloat16, 144, [144, 288, 576], [0, 0, 0], "tensor_core"),
+        (torch.bfloat16, 256, [256, 256, 4096], [0, 0, 0], "tensor_core"),
+        (torch.bfloat16, 272, [272, 544, 1088], [0, 0, 0], "cuda_core"),
         (torch.bfloat16, 64, [65536, 1028, 64], [0, 0, 0], "cuda_core"),
         (torch.bfloat16, 64, [65536, 1024, 64], [0, 8, 0], "cuda_core"),
     ],
@@ -146,10 +149,14 @@ def test_variant_keyword():
 
 
 @pytest.mark.parametrize(
-    "case", [c for c in CASES if c["D"] % 16 == 0], ids=lambda c: f"D{c['D']}-Sq{c['Sq']}"
+    "case",
+    [c for c in CASES if c["D"] % 16 == 0]
+    + [dict(B=1, Sq=80, Sk=80, Hq=4, Hkv=1, D=256, causal=True, window=24)],
+    ids=lambda c: f"D{c['D']}-Sq{c['Sq']}",
 )
 def test_tc_emulation_matches_jax_flash(case):
-    """On JAX's cases that the rule sends to the tensor cores."""
+    """On JAX's cases that the rule sends to the tensor cores, and at D 256
+    (recurrentgemma's MQA under a window, 32-key tiles)."""
     q, k, v = bf16_inputs(case, 0)
     assert variant_for(q, k, v) == "tensor_core"
     kw = dict(causal=case["causal"], window=case["window"])

@@ -37,7 +37,7 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention, 
 from repro_torch.kernels.flash_attention.kernel import variant_for
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 from repro_torch.launch.serve_lm import greedy_decode
-from repro_torch.models.convert import load_jax_params, numpy_params
+from repro_torch.models.convert import frames, load_jax_params, numpy_params
 from repro_torch.models.registry import get_model
 
 pytestmark = pytest.mark.cuda
@@ -192,7 +192,8 @@ def test_composed_expansion_runs_the_panel_kernels(cuda, problem):
 
 
 # JAX's attention CASES (tests/test_kernels_attention.py:22-30), plus head
-# sizes that are not powers of two, D = 128 and GQA at the serving widths
+# sizes that are not powers of two, D = 128 and GQA at the serving widths,
+# and D = 256 (recurrentgemma's local attention: MQA under a window)
 ATTN_CASES = [
     dict(B=2, Sq=64, Sk=64, Hq=4, Hkv=2, D=32, causal=True, window=None),
     dict(B=1, Sq=128, Sk=128, Hq=4, Hkv=1, D=64, causal=True, window=32),
@@ -204,6 +205,8 @@ ATTN_CASES = [
     dict(B=2, Sq=40, Sk=40, Hq=4, Hkv=2, D=12, causal=True, window=None),
     dict(B=1, Sq=200, Sk=200, Hq=24, Hkv=2, D=128, causal=True, window=None),
     dict(B=2, Sq=1, Sk=1057, Hq=16, Hkv=16, D=64, causal=True, window=None),
+    dict(B=2, Sq=100, Sk=100, Hq=4, Hkv=1, D=256, causal=True, window=40),
+    dict(B=1, Sq=70, Sk=70, Hq=2, Hkv=2, D=256, causal=False, window=None),
 ]
 
 
@@ -251,7 +254,8 @@ def test_wkv6_kernel_equals_plain_version(cuda, B, T, H, K, V, with_state):
 
 # the tensor-core variant's shapes: the serving shapes of chip_smoke.py
 # (qwen1.5-0.5b's prefill, starcoder2-3b's GQA widths, a window, one query
-# against 1,057 keys) and ragged query counts, D 64 and 128
+# against 1,057 keys) and ragged query counts, D 64, 128 and 256 (four
+# panels, 32-key tiles)
 TC_CASES = [
     dict(B=4, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=None),
     dict(B=4, Sq=1024, Sk=1024, Hq=24, Hkv=2, D=128, causal=True, window=None),
@@ -260,7 +264,7 @@ TC_CASES = [
 ] + [
     dict(B=2, Sq=sq, Sk=sk, Hq=hq, Hkv=hkv, D=d, causal=True, window=w)
     for sq, sk in ((1, 1), (33, 33), (70, 70), (33, 130))
-    for hq, hkv, d, w in ((4, 1, 64, None), (6, 2, 128, 24))
+    for hq, hkv, d, w in ((4, 1, 64, None), (6, 2, 128, 24), (4, 1, 256, 16))
 ]
 
 
@@ -325,7 +329,7 @@ def test_wkv6_value_tiles_and_k_slices(cuda, V, K, T, with_state):
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 4, 2, 160, device=cuda)
+    q = torch.zeros(1, 4, 2, 272, device=cuda)  # D above 256
     with pytest.raises(ValueError, match="head size"):
         flash_attention(q, q, q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -343,10 +347,13 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         wkv6(big, big, big, big, big[0, 0])
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "starcoder2_3b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "starcoder2_3b", "rwkv6_3b",
+                                  "recurrentgemma_9b", "whisper_large_v3"])
 def test_lm_smoke_on_card_equals_cpu(cuda, arch):
     """The smoke configs in f32: the card's forward (one kernel launch per
-    layer) and greedy tokens equal the CPU's plain path."""
+    attention or time-mix layer, an encoder's too) and greedy tokens (past
+    Griffin's 16-slot ring; whisper's decode primed with the frames) equal
+    the CPU's plain path."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke_config(arch)
     model = get_model(cfg)
@@ -354,16 +361,22 @@ def test_lm_smoke_on_card_equals_cpu(cuda, arch):
     on_cpu = load_jax_params(model.init(device="cpu"), tree)
     on_card = load_jax_params(model.init(device=cuda), tree)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 20)))
+    fr = torch.from_numpy(frames(cfg, 2, 2)) if cfg.family == "encdec" else None
+    on = lambda dev: {"tokens": toks.to(dev), **({} if fr is None else {"frames": fr.to(dev)})}
     counts.reset()
-    got = model.forward(on_card, {"tokens": toks.to(cuda)})
+    got = model.forward(on_card, on(cuda))
     torch.cuda.synchronize()
     # f32: attention runs on the CUDA-core variant
     kernel = "wkv6" if cfg.family == "ssm" else "flash_attention.cuda_core"
-    assert counts.snapshot() == {kernel: cfg.n_layers}
-    want = model.forward(on_cpu, {"tokens": toks})
+    n = {"hybrid": cfg.layer_kinds().count("attn"),
+         "encdec": cfg.n_enc_layers + cfg.n_layers}.get(cfg.family, cfg.n_layers)
+    assert counts.snapshot() == {kernel: n}
+    want = model.forward(on_cpu, on("cpu"))
     assert (got.cpu() - want).abs().max() < 1e-4
-    gen_card, _ = greedy_decode(model, on_card, toks[:, :8].to(cuda), 6)
-    gen_cpu, _ = greedy_decode(model, on_cpu, toks[:, :8], 6)
+    gen = 12 if cfg.family == "hybrid" else 6  # 8 + 12 tokens wrap the 16-slot ring
+    gen_card, _ = greedy_decode(model, on_card, toks[:, :8].to(cuda), gen,
+                                frames=None if fr is None else fr.to(cuda))
+    gen_cpu, _ = greedy_decode(model, on_cpu, toks[:, :8], gen, frames=fr)
     assert torch.equal(gen_card.cpu(), gen_cpu)
 
 

@@ -1,23 +1,29 @@
 """The LM goldens of the port's card smoke, made by the JAX package.
 
 Run as a script, it runs the qwen1.5, starcoder2, rwkv6, qwen3-moe,
-llama4-scout and pixtral smoke configs in f32 through the JAX package on the
-CPU, with the weights of ``repro_torch.models.convert.numpy_params(cfg,
-seed)``, seeded prompts and, for pixtral, seeded patch embeddings
-(``convert.patch_embeds(cfg, batch, patch_seed)``), and writes
-``src/repro_torch/data/golden_lm.json``:
+llama4-scout, pixtral, recurrentgemma and whisper smoke configs in f32
+through the JAX package on the CPU, with the weights of
+``repro_torch.models.convert.numpy_params(cfg, seed)``, seeded prompts, for
+pixtral seeded patch embeddings (``convert.patch_embeds(cfg, batch,
+patch_seed)``) and for whisper seeded frames (``convert.frames(cfg, batch,
+frames_seed)``), and writes ``src/repro_torch/data/golden_lm.json``:
 
   PYTHONPATH=src python tests/test_torch_golden_lm.py
 
 For each config it holds the last-position logits of a forward through the
-Pallas kernels (interpret mode; pixtral's with its patch prefix) and the
-greedy tokens of the JAX example's ``greedy_decode``, with the smallest gap
-between the best and the second logit over the greedy steps (so a tolerance
-below it cannot flip a token).  The dense and rwkv6 entries take those
-steps' logits from the forward, which equals their decode path; the MoE and
-VLM entries from the decode path itself, which is what greedy decode saw:
-MoE decode drops assignments the forward keeps (C = 1 a step at cf 1.25,
-``repro/models/moe.py:129``), and VLM decode sees no patch prefix.
+Pallas kernels (interpret mode; pixtral's with its patch prefix; Griffin's
+and Whisper's forwards take no ``attn_impl`` and run JAX's blockwise
+default) and the greedy tokens of the JAX example's ``greedy_decode`` (for
+whisper its loop with the cache primed from the run's frames, where the
+example primes zeros), with the smallest gap between the best and the
+second logit over the greedy steps (so a tolerance below it cannot flip a
+token).  The dense, rwkv6 and Griffin entries take those steps' logits from
+the forward, which equals their decode path; the MoE, VLM and whisper
+entries from the decode path itself, which is what greedy decode saw: MoE
+decode drops assignments the forward keeps (C = 1 a step at cf 1.25,
+``repro/models/moe.py:129``), VLM decode sees no patch prefix, and whisper's
+differs from the forward in the last f32 bits.  recurrentgemma's 10 + 8
+tokens wrap its 16-slot window ring.
 ``chip_smoke.py`` reproduces the file on the card through the kernels.  Run
 as a test, it checks that the JAX package still reproduces the file and
 that the port does on the CPU.
@@ -34,27 +40,33 @@ import numpy as np
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke
+from repro.models import encdec as jax_encdec
+from repro.models import griffin as jax_griffin
 from repro.models import rwkv6 as jax_rwkv6
 from repro.models import transformer as jax_transformer
 from repro.models.registry import get_model as jax_get_model
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.serve_lm import greedy_decode
 from repro_torch.models import moe
-from repro_torch.models.convert import load_jax_params, numpy_params, patch_embeds
+from repro_torch.models.convert import frames, load_jax_params, numpy_params, patch_embeds
 from repro_torch.models.registry import get_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 OUT = ROOT / "src" / "repro_torch" / "data" / "golden_lm.json"
 
 # qwen's prompt seed is 101, not 100: with 100 one greedy step's best two
-# logits lie 0.0005 apart, too close for a comparison at LOGITS_TOL
+# logits lie 0.0005 apart, too close for a comparison at LOGITS_TOL.
+# whisper's weights seed is 10: with 7-9 its greedy walk repeats one or two
+# tokens (the frames dominate random weights), which pins little
 RUNS = {
     arch: dict(arch=arch, weights_seed=w, prompt_seed=ps, batch=2, prompt_len=10, gen=8)
     for arch, w, ps in (("qwen1_5_0_5b", 0, 101), ("starcoder2_3b", 1, 101),
                         ("rwkv6_3b", 2, 102), ("qwen3_moe_235b_a22b", 3, 103),
-                        ("llama4_scout_17b_16e", 4, 104), ("pixtral_12b", 5, 105))
+                        ("llama4_scout_17b_16e", 4, 104), ("pixtral_12b", 5, 105),
+                        ("recurrentgemma_9b", 6, 107), ("whisper_large_v3", 10, 108))
 }
 RUNS["pixtral_12b"]["patch_seed"] = 106
+RUNS["whisper_large_v3"]["frames_seed"] = 109
 # f32 throughout, another summation order than JAX's on the CPU
 LOGITS_TOL = 1e-4
 # the port's smallest gap between a token's K-th and (K+1)-th router
@@ -70,6 +82,13 @@ def patches(run: dict):
     return patch_embeds(get_smoke_config(run["arch"]), run["batch"], run["patch_seed"])
 
 
+def run_frames(run: dict):
+    """The run's frame embeddings (numpy), or None."""
+    if "frames_seed" not in run:
+        return None
+    return frames(get_smoke_config(run["arch"]), run["batch"], run["frames_seed"])
+
+
 def prompts(run: dict) -> np.ndarray:
     cfg = get_smoke_config(run["arch"])
     rng = np.random.default_rng(run["prompt_seed"])
@@ -81,8 +100,13 @@ def jax_record(run: dict) -> dict:
     params = jax.tree.map(jnp.asarray, numpy_params(get_smoke_config(run["arch"]),
                                                     run["weights_seed"]))
     toks = jnp.asarray(prompts(run))
+    fr = run_frames(run)
     if cfg.family == "ssm":
         logits = jax_rwkv6.forward(params, cfg, toks, wkv_impl="pallas")[0]
+    elif cfg.family == "hybrid":
+        logits = jax_griffin.forward(params, cfg, toks)[0]
+    elif cfg.family == "encdec":
+        logits = jax_encdec.forward(params, cfg, toks, frames=jnp.asarray(fr))[0]
     else:
         pe = patches(run)
         logits = jax_transformer.forward(params, cfg, toks, attn_impl="pallas",
@@ -92,18 +116,35 @@ def jax_record(run: dict) -> dict:
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     model = jax_get_model(cfg)
-    gen = np.asarray(example.greedy_decode(cfg, model, params, toks, run["gen"]))
+
+    def primed_cache():
+        cache, _ = model.init_decode_cache(run["batch"], run["prompt_len"] + run["gen"] + 1)
+        if fr is not None:
+            cache = jax_encdec.prime_cross_cache(params, cfg, cache, jnp.asarray(fr))
+        return cache
+
+    if fr is None:
+        gen = np.asarray(example.greedy_decode(cfg, model, params, toks, run["gen"]))
+    else:  # the example's loop, the cache primed with the run's frames
+        cache, decode, out = primed_cache(), jax.jit(model.decode_fn), []
+        for t in range(run["prompt_len"]):
+            step, cache = decode(params, cache, toks[:, t : t + 1])
+        for _ in range(run["gen"]):
+            out.append(jnp.argmax(step[:, -1], axis=-1)[:, None].astype(jnp.int32))
+            step, cache = decode(params, cache, out[-1])
+        gen = np.asarray(jnp.concatenate(out, axis=1))
     # the greedy steps' logits, for the margin of each argmax
     seq = jnp.concatenate([toks, jnp.asarray(gen[:, :-1])], axis=1)
-    if cfg.family in ("moe", "vlm"):  # the decode path's own logits
-        cache, _ = model.init_decode_cache(run["batch"], run["prompt_len"] + run["gen"] + 1)
+    if cfg.family in ("moe", "vlm", "encdec"):  # the decode path's own logits
+        cache = primed_cache()
         decode, outs = jax.jit(model.decode_fn), []
         for t in range(seq.shape[1]):
             step, cache = decode(params, cache, seq[:, t : t + 1])
             outs.append(np.asarray(step))
         steps = np.concatenate(outs, axis=1)[:, run["prompt_len"] - 1 :]
     else:
-        fwd = jax_rwkv6.forward if cfg.family == "ssm" else jax_transformer.forward
+        fwd = {"ssm": jax_rwkv6.forward, "hybrid": jax_griffin.forward}.get(
+            cfg.family, jax_transformer.forward)
         steps = np.asarray(fwd(params, cfg, seq)[0])[:, run["prompt_len"] - 1 :]
     assert (steps.argmax(-1) == gen).all()
     top2 = np.sort(steps, axis=-1)[..., -2:]
@@ -126,6 +167,8 @@ def port_record(run: dict) -> dict:
     batch = {"tokens": toks}
     if patches(run) is not None:
         batch["patch_embeds"] = torch.from_numpy(patches(run))
+    if run_frames(run) is not None:
+        batch["frames"] = torch.from_numpy(run_frames(run))
     margins = [float("inf")]
     route = moe.route
 
@@ -137,7 +180,7 @@ def port_record(run: dict) -> dict:
 
     with mock.patch.object(moe, "route", watched):
         logits = model.forward(params, batch)
-        gen, _ = greedy_decode(model, params, toks, run["gen"])
+        gen, _ = greedy_decode(model, params, toks, run["gen"], frames=batch.get("frames"))
     return {"last_logits": logits[:, -1].numpy(), "tokens": gen.numpy(),
             "route_margin": min(margins)}
 

@@ -15,7 +15,7 @@ through both packages:
 * decode against the forward: for MoE only at ample capacity (below);
 * the greedy tokens against the JAX example's ``greedy_decode``, exactly;
 * the converter's tree against ``jax.eval_shape(init_lm)``, and the decode
-  cache's clamp at a full cache; the refused families raise.
+  cache's clamp at a full cache; an unknown family raises.
 
 MoE decode equals the forward only when no assignment drops.  The capacity
 is ``C = int(max(1, (K·T/E)·cf))`` (``repro/models/moe.py:129``): a decode
@@ -292,9 +292,17 @@ def test_cache_write_clamps_at_a_full_cache(arch):
 
 
 def test_refused_families_raise():
-    for arch, item in (("recurrentgemma_9b", "14c"), ("whisper_large_v3", "14d")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-            get_model(get_smoke_config(arch))
+    """Every family the JAX package serves is served (hybrid and encdec
+    since their slice); an unknown family raises ValueError, as JAX's
+    get_model does; so does an unknown attention impl."""
+    for arch in ("recurrentgemma_9b", "whisper_large_v3"):
+        cfg = get_smoke_config(arch)
+        assert get_model(cfg).cfg is cfg
+    bad = dataclasses.replace(get_smoke_config("qwen1_5_0_5b"), family="diffusion")
+    with pytest.raises(ValueError, match="unknown family 'diffusion'"):
+        get_model(bad)
+    with pytest.raises(ValueError, match="unknown family"):
+        jax_get_model(dataclasses.replace(jax_smoke("qwen1_5_0_5b"), family="diffusion"))
     _, _, model, params = both("qwen1_5_0_5b")
     with pytest.raises(ValueError, match="unknown attention impl"):
         transformer.forward(params, port(tokens(model.cfg)), attn_impl="pallas")
