@@ -66,13 +66,14 @@ Phases (any failed check raises, so the exit code is not 0):
    last-position logits and greedy tokens reproduced through the kernels;
 10. LM serving at full width — qwen1.5-0.5b and rwkv6-3b in bf16 with the
    port's seeded init: a prefill of 4 prompts of 1,024 tokens (one kernel
-   launch per layer) and greedy decode of 32 tokens; each layer's attention
+   launch per layer) and greedy decode (the prompts' last 256 tokens walked
+   into the cache, then 32 generated, as in phases 18-19); each layer's attention
    or time-mix output with the kernel against the plain op computed in f64;
    the whole bf16 forward with the kernel against the plain one, held to the
    witness gap between the plain route and its f64 twin; in f32 the kernel
-   forward against the plain one; the decode path's last prompt logits
-   against the forward's; and for rwkv6 the prompt as one chunk against two
-   halves;
+   forward against the plain one; the decode path's last logits against a
+   forward of the walked tokens; and for rwkv6 the prompt as one chunk
+   against two halves;
 11. the live service (run after phase 7) — ``SolveService`` on the card:
    (a) lane churn, eight tickets G(300, 4/299, seeds 0-7) with distinct
    priorities through 4 lanes of 64 workers: seed 0 equals
@@ -276,6 +277,33 @@ Phases (any failed check raises, so the exit code is not 0):
    tok/s, ms a decode step and peak memory.  The kernels line gives the
    paths' launches as ``hybrid_encdec_launches`` and the attention times at
    these shapes as ``hybrid_encdec_shapes``.
+20. LM training (run after phase 19; phases 8-19 run under
+   ``torch.inference_mode()``, as serving does, this one with autograd) --
+   ``repro_torch.launch.train``: ``loss_fn`` with torch autograd, each block
+   rematerialised, so each LM kernel launches in the forward and again in
+   the recompute; its backward is the gradient of its plain version (the
+   autograd Functions of ``kernels/*/ops.py``), then the port's AdamW.  (a)
+   ``src/repro_torch/data/golden_train.json`` (JAX-made: 4 steps of JAX's
+   training step from ``numpy_params`` for the qwen1.5, starcoder2,
+   qwen3-moe, pixtral, rwkv6, recurrentgemma and whisper smoke configs in
+   f32) reproduced through ``train_step``: the losses and gradient norms
+   within 1e-4, each leaf's norm within 1e-5 and the norm of its change
+   within 2e-3 (relative), 2 launches a layer a step (the CUDA-core variant,
+   or ``wkv6``); (b) qwen1.5-0.5b uncut in bf16 with the port's seeded init:
+   step 1 on three routes (the kernel, blockwise attention in the same bf16
+   model, blockwise in an f32 copy), the kernel's loss within one bf16 step
+   of the blockwise one's and each attention weight's gradient nonzero and
+   no farther from the blockwise route's than twice the bf16-f32 gap; 16
+   steps of 8 x 1,024 tokens through ``train_loop`` (48 tensor-core launches
+   a step: 24 forward, 24 recompute), tok/s, the forward, backward and
+   optimizer ms a step and peak memory; 8 steps with a checkpoint, then a
+   run resumed from it to step 16 within 1e-3 of the uninterrupted losses;
+   (c) rwkv6-3b at full width, 4 of its 32 layers, 4 steps of 2 x 1,024
+   tokens (8 ``wkv6`` launches a step) with step 1's time-mix gradients held
+   to the ``ref`` route the same way; (d) the plain backward's ms at those
+   shapes (and SDPA's backward at qwen's, which the port never calls).  The
+   kernels line gives the paths' launches as ``train_launches`` and the
+   timings as ``train_shape``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -2979,11 +3007,12 @@ WITNESS_FACTOR = 2.0
 # 2.2e-4 and 1.1e-4 (chunks)
 F32_REL_TOL = 1e-3
 F32_DECODE_PROMPT = 64
-# the bf16 decode path's logits at the last of the 1,024 prompt tokens against
-# the forward's, about twice the readings of an H100 (1.9% and 10.9%; pixtral's
-# at the last of phase 18's 256 walked tokens 2.1%, recurrentgemma's and
-# whisper's in phase 19 1.87% and 1.18%; a decode fault -- a wrong position,
-# cache or ring slot, state or cross K/V -- gives errors of order 1)
+# the bf16 decode path's logits at the last of the walked tokens (DECODE_WALK)
+# against a forward of those tokens, about twice the readings of an H100 (qwen's
+# and rwkv6's 1.9% and 10.9% when phase 10 walked all 1,024 prompt tokens; pixtral's
+# at the last of 256 walked tokens 2.1%, recurrentgemma's and whisper's 1.87% and
+# 1.18%; a decode fault -- a wrong position, cache or ring slot, state or cross
+# K/V -- gives errors of order 1)
 BF16_DECODE_TOL = {"qwen1.5-0.5b": 0.04, "rwkv6-3b": 0.22, "pixtral-12b": 0.05,
                    "recurrentgemma-9b": 0.04, "whisper-large-v3": 0.025}
 
@@ -3462,53 +3491,32 @@ def phase_serve_lm(dev) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import counts
-    from repro_torch.launch.serve_lm import greedy_decode
     from repro_torch.models.registry import get_model
 
-    B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    B, P = SERVE["batch"], SERVE["prompt_len"]
     main_launches = {}
     for arch in ("qwen1.5-0.5b", "rwkv6-3b"):
-        t0 = time.perf_counter()
         cfg = get_config(arch)
         model = get_model(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(SERVE["seed"]), dev)
-        n_params = sum(p.numel() for p in params.parameters())
         toks = torch.from_numpy(
             np.random.default_rng(SERVE["seed"]).integers(0, cfg.vocab, (B, P))).to(dev)
         # bf16 at D 64: attention runs on the tensor-core variant
         kernel = "wkv6" if cfg.family == "ssm" else "flash_attention.tensor_core"
-        model.forward(params, {"tokens": toks})  # warm-up: cuBLAS and kernel loads
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-
         # the serving path: prefill, then greedy decode, launches counted
-        counts.reset()
-        t0 = time.perf_counter()
-        logits = model.forward(params, {"tokens": toks})
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out, prompt_logits = greedy_decode(model, params, toks, gen)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        launches = counts.snapshot()
+        n_params = sum(p.numel() for p in params.parameters())
+        logits, prompt_logits, _, launches, _ = _serve_walk(
+            model, params, {"tokens": toks}, dev, f"{cfg.name} ({n_params} params, bf16)")
         main_launches.update(launches)
         check(launches == {kernel: cfg.n_layers},
               f"{arch}: launches {launches}, want {cfg.n_layers} {kernel} (one per "
               f"layer of the prefill; decode attends/steps in plain torch)")
-        check(tuple(out.shape) == (B, gen) and bool(torch.isfinite(logits).all()),
-              f"{arch}: generated {tuple(out.shape)}, logits finite "
-              f"{bool(torch.isfinite(logits).all())}")
-        print(f"[smoke] serve {cfg.name} ({n_params} params, bf16): prefill {B}x{P} in "
-              f"{prefill_s:.6f} s = {B * P / prefill_s:.1f} tok/s; greedy decode "
-              f"{P}+{gen} steps in {decode_s:.3f} s = {1e3 * decode_s / (P + gen):.3f} "
-              f"ms/step, {B * (P + gen) / decode_s:.1f} tok/s ({B * gen / decode_s:.1f} "
-              f"generated tok/s); set-up {setup_s:.3f} s; launches {launches}")
 
         t0 = time.perf_counter()
-        e_bf16_decode = _rel(prompt_logits, logits[:, -1])
+        walk = toks[:, -DECODE_WALK:]
+        e_bf16_decode = _rel(prompt_logits, model.forward(params, {"tokens": walk})[:, -1])
         check(e_bf16_decode < BF16_DECODE_TOL[arch],
-              f"{arch}: bf16 decode vs forward at the last prompt token {e_bf16_decode}")
+              f"{arch}: bf16 decode vs a forward of the walked tokens {e_bf16_decode}")
         del prompt_logits
         e_h = _layer_h(cfg, params, toks)
         check(e_h["kernel/f64"] < SERVE_H_TOL,
@@ -3531,8 +3539,8 @@ def phase_serve_lm(dev) -> dict:
         fmt = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
         line = (f"[smoke] {cfg.name} checks: the layers' h (bf16), largest of {fmt(e_h)}; "
                 f"whole bf16 forwards {fmt(e_fwd)}; f32 forward kernel/plain "
-                f"{e_f32_fwd:.4g}; decode vs forward, bf16 at the last of {P} prompt "
-                f"tokens {e_bf16_decode:.4g}, f32 over {F32_DECODE_PROMPT} tokens "
+                f"{e_f32_fwd:.4g}; decode vs forward, bf16 at the last of the {DECODE_WALK} "
+                f"walked tokens {e_bf16_decode:.4g}, f32 over {F32_DECODE_PROMPT} tokens "
                 f"{e_f32_decode:.4g}")
         if cfg.family == "ssm":
             # decode_fn over the prompt as one chunk and as two halves: the
@@ -3582,7 +3590,10 @@ MOE_EXACT_TOL = lambda K: 2.0 * (5 + K) ** 0.5 * 2.0**-9
 # decode steps whose MoE calls give the drop share of a decode step
 DROP_DECODE_STEPS = 16
 # greedy decode walks the last DECODE_WALK prompt tokens into the cache, then
-# generates: a cut of the walk's length (1,024 in phase 10), not of any width.
+# generates: a cut of the walk's length, not of any width.  Phase 10's walk
+# over all 1,024 prompt tokens took 98 s of a 1,148 s smoke on an H100 host
+# whose steps ran 37-55 ms (a host-bound step: its cost does not depend on the
+# walk's length).
 # A step's cost does not depend on it (the cached attention reads under 0.1%
 # of a step's bytes); walking all 1,024 took 65 s for pixtral alone (61.6 ms a
 # host-bound step on an H100 80GB HBM3 at 700 W)
@@ -4197,6 +4208,362 @@ def phase_hybrid_encdec(dev) -> dict:
     return out
 
 
+# -- phase 20: LM training ----------------------------------------------------
+
+TRAIN_GOLDEN = DATA / "golden_train.json"
+# the golden's tolerances, tests/test_torch_golden_train.py's (where the port
+# on the CPU meets them within 1e-6, 2e-6 and 8e-5 of JAX): f32 on both
+# sides, but the kernels' forwards and the card's summation orders here, and
+# Adam's first steps are ±lr on elements whose gradient is rounding noise
+# (the key bias's gradient is zero in exact arithmetic: left out of the
+# change check).  Losses and gradient norms relative, each leaf's norm and
+# the norm of its change over the steps relative
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_LEAF_TOL = 1e-5
+TRAIN_CHANGE_TOL = 2e-3
+# qwen1.5-0.5b uncut (24 layers, d 1024, 16 heads of 64, vocab 151,936, bf16,
+# 0.62 B parameters) through train_loop: the uninterrupted run, then a run
+# to the checkpoint step and one resumed from it
+TRAIN_QWEN = dict(arch="qwen1.5-0.5b", batch=8, seq=1024, steps=16, resume_at=8, seed=0)
+# rwkv6-3b at full width cut in depth (4 of its 32 layers), bf16
+TRAIN_RWKV = dict(arch="rwkv6-3b", layers=4, batch=2, seq=1024, steps=4, seed=0)
+# the resumed run's losses against the uninterrupted run's: the JAX example's
+# criterion (examples/train_lm.py)
+TRAIN_RESUME_DRIFT = 1e-3
+# step 1's loss, kernel route against the plain one in the same bf16 model:
+# within one bf16 step, relative (the loss is an f32 mean over bf16 logits)
+TRAIN_LOSS_BF16 = 2.0**-8
+# the attention backward timed at qwen's training shape
+QWEN_TRAIN_ATTN = dict(B=8, Sq=1024, Sk=1024, Hq=16, Hkv=16, D=64, causal=True, window=None)
+
+
+def _flat_tree(tree, prefix="") -> dict:
+    """{path: f32 numpy leaf} of a JAX-layout tree of tensors or arrays."""
+    import numpy as np
+
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = (v.float().cpu().numpy() if hasattr(v, "cpu")
+                                   else np.asarray(v, np.float32))
+    return out
+
+
+def _train_golden(dev) -> dict:
+    """(a) golden_train.json (JAX-made, f32 smoke configs) through
+    ``train_step`` and the kernels.  Returns the launches, summed."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import counts
+    from repro_torch.launch.train import step_inputs, train_step
+    from repro_torch.models.convert import export_params, load_jax_params, numpy_params
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw_init
+
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    total = collections.Counter()
+    for arch, run in json.loads(TRAIN_GOLDEN.read_text()).items():
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        tree = numpy_params(cfg, run["weights_seed"])
+        params = load_jax_params(model.init(device=dev), tree)
+        opt = adamw_init({k: p.detach() for k, p in params.named_parameters()})
+        pipe = SyntheticTokens(vocab=cfg.vocab, seq_len=run["seq"] + 1,
+                               global_batch=run["batch"], seed=run["data_seed"])
+        want = run["result"]
+        steps = len(want["losses"])
+        losses, gnorms = [], []
+        counts.reset()
+        for it in range(steps):
+            b = pipe.next_batch(device=dev)
+            b.update(step_inputs(cfg, run["batch"], run["data_seed"], it, dev))
+            opt, loss, gnorm = train_step(model, params, opt, b, peak_lr=run["peak_lr"],
+                                          total_steps=steps)
+            losses.append(float(loss))
+            gnorms.append(float(gnorm))
+        launches = counts.snapshot()
+        total.update(launches)
+        # f32: attention on the CUDA-core variant; each rematerialised layer
+        # launches its kernel in the forward and again in the recompute (the
+        # smoke configs' Griffin tail holds no attention layer)
+        kernel = "wkv6" if cfg.family == "ssm" else "flash_attention.cuda_core"
+        n = 2 * steps * (cfg.n_layers if cfg.family == "ssm" else _attention_layers(cfg))
+        check(launches == {kernel: n}, f"golden_train {arch}: launches {launches}, want {n} {kernel}")
+        before, after = _flat_tree(tree), _flat_tree(export_params(params))
+        check(sorted(after) == sorted(want["leaves"]), f"golden_train {arch}: leaves differ")
+        norm = lambda a: float(np.linalg.norm(a.astype(np.float64)))  # noqa: E731
+        gaps = {
+            "loss": max(rel(a, b) for a, b in zip(losses, want["losses"])),
+            "grad_norm": max(rel(a, b) for a, b in zip(gnorms, want["grad_norms"])),
+            "leaf": max(rel(norm(after[k]), v[0]) for k, v in want["leaves"].items()),
+            "change": max(rel(norm(after[k] - before[k]), v[1])
+                          for k, v in want["leaves"].items() if not k.endswith("attn.bk")),
+        }
+        check(gaps["loss"] <= TRAIN_LOSS_TOL and gaps["grad_norm"] <= TRAIN_LOSS_TOL
+              and gaps["leaf"] <= TRAIN_LEAF_TOL and gaps["change"] <= TRAIN_CHANGE_TOL,
+              f"golden_train {arch}: {gaps}")
+        print(f"[smoke] golden_train {cfg.name}: {steps} steps, losses {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}; relative gaps to JAX's {({k: float(f'{v:.3g}') for k, v in gaps.items()})} "
+              f"(<= {TRAIN_LOSS_TOL}, {TRAIN_LOSS_TOL}, {TRAIN_LEAF_TOL}, {TRAIN_CHANGE_TOL}); "
+              f"launches {launches}")
+        del params, opt
+    return dict(total)
+
+
+def _train_witness(cfg, dev, run: dict, leaves) -> dict:
+    """(b)/(c) step 1 from the seeded init on three routes: the kernel, the
+    plain route in the same bf16 model, the plain route in an f32 copy.  The
+    kernel route's loss within one bf16 step of the plain route's; each kind
+    of leaf in ``leaves`` (its gradients over every layer, one vector) nonzero
+    and no farther from the plain route than WITNESS_FACTOR times the gap
+    between the plain route in bf16 and in f32.  Returns the readings and
+    the kernel route's launches."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import counts
+    from repro_torch.models import rwkv6, transformer
+    from repro_torch.models.registry import get_model
+
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(run["seed"]), dev)
+    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=run["seq"] + 1,
+                            global_batch=run["batch"], seed=run["seed"]).next_batch(device=dev)
+    loss_fn = rwkv6.loss_fn if cfg.family == "ssm" else transformer.loss_fn
+    key, plain = PLAIN_ROUTE[cfg.family]
+    names = [n for n, _ in params.named_parameters() if n.endswith(leaves)]
+
+    def grads(p, **kw):
+        named = dict(p.named_parameters())
+        loss = loss_fn(p, batch, **kw)
+        g = torch.autograd.grad(loss, [named[n] for n in names])
+        return float(loss.detach()), dict(zip(names, (t.float() for t in g)))
+
+    counts.reset()
+    lk, gk = grads(params)
+    torch.cuda.synchronize()
+    launches = counts.snapshot()
+    lb, gb = grads(params, **{key: plain})
+    _, params32 = _f32_copy(cfg, params, dev)
+    lf, gf = grads(params32, **{key: plain})
+    del params32
+    check(abs(lk - lb) <= TRAIN_LOSS_BF16 * abs(lb),
+          f"train {cfg.name}: step 1 loss kernel {lk} vs plain {lb}")
+    readings = {}
+    for leaf in leaves:
+        group = [n for n in names if n.endswith(leaf)]
+        vec = lambda g: torch.cat([g[n].flatten() for n in group])  # noqa: E731
+        k, b, f = vec(gk), vec(gb), vec(gf)
+        e = {"kernel/plain": _rel(k, b), "plain/f32": _rel(b, f), "kernel/f32": _rel(k, f)}
+        readings[leaf] = {p: float(f"{v:.4g}") for p, v in e.items()}
+        if leaf.endswith("bk"):  # zero in exact arithmetic: rounding noise on every route
+            continue
+        check(all(float(gk[n].abs().max()) > 0 for n in group),
+              f"train {cfg.name}: a {leaf} gradient is zero on the kernel route")
+        check(e["kernel/plain"] <= WITNESS_FACTOR * e["plain/f32"],
+              f"train {cfg.name}: {leaf} gradient kernel/plain {e['kernel/plain']} > "
+              f"{WITNESS_FACTOR} x plain/f32 {e['plain/f32']}")
+    print(f"[smoke] train {cfg.name} step 1: loss kernel {lk:.6f}, plain {lb:.6f}, f32 {lf:.6f}; "
+          f"launches {launches}; gradients ||a - b|| / ||b|| by leaf over {cfg.n_layers} "
+          f"layers: {readings}")
+    return {"loss": {"kernel": lk, "plain": lb, "f32": lf}, "grads": readings,
+            "launches": launches}
+
+
+def _dir_size(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def _train_qwen(dev) -> dict:
+    """(b) qwen1.5-0.5b uncut through ``train_loop``: the step-1 witness, the
+    uninterrupted run (launches, tok/s, the parts' ms, peak memory), a run
+    to the checkpoint step and a run resumed from it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts
+    from repro_torch.launch.train import train_loop
+
+    r = TRAIN_QWEN
+    cfg = get_config(r["arch"])
+    witness = _train_witness(cfg, dev, r, ("attn.wq", "attn.wk", "attn.wv", "attn.wo",
+                                           "attn.bq", "attn.bk", "attn.bv"))
+    check(witness["launches"] == {"flash_attention.tensor_core": 2 * cfg.n_layers},
+          f"train {cfg.name}: step 1 launched {witness['launches']}")
+    kw = dict(batch=r["batch"], seq=r["seq"], seed=r["seed"], device=dev, log_every=4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    counts.reset()
+    t0 = time.perf_counter()
+    params, _, control = train_loop(cfg, steps=r["steps"], times=times, **kw)
+    wall = time.perf_counter() - t0
+    launches = counts.snapshot()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in params.parameters())
+    del params
+    per_step = 2 * cfg.n_layers  # the forward and the recompute, tensor cores
+    check(launches == {"flash_attention.tensor_core": per_step * r["steps"]},
+          f"train {cfg.name}: {r['steps']} steps launched {launches}")
+    tokens = r["batch"] * r["seq"] * r["steps"]
+    parts = {k: v / r["steps"] for k, v in times.items()}
+    print(f"[smoke] train {cfg.name} ({n_params} params, bf16) {r['steps']} steps of "
+          f"{r['batch']}x{r['seq']}: {wall:.3f} s, {tokens / wall:.1f} tok/s; a step "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in parts.items())} (device synchronised "
+          f"between the parts); peak memory {peak_gb:.3f} GB; launches {launches} "
+          f"({per_step} a step); losses {control[0]:.4f} -> {control[-1]:.4f}")
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        t0 = time.perf_counter()
+        _, _, first = train_loop(cfg, steps=r["resume_at"], ckpt_dir=ckpt, ckpt_every=10**9, **kw)
+        first_s = time.perf_counter() - t0
+        ckpt_bytes = _dir_size(ckpt)
+        counts.reset()
+        t0 = time.perf_counter()
+        _, _, second = train_loop(cfg, steps=r["steps"], ckpt_dir=ckpt, ckpt_every=10**9,
+                                  resume=True, **kw)
+        second_s = time.perf_counter() - t0
+        resumed_launches = counts.snapshot()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    resumed = first + second
+    check(len(resumed) == len(control), f"train {cfg.name}: {len(resumed)} resumed losses")
+    drift = max(abs(a - b) for a, b in zip(resumed, control))
+    check(drift < TRAIN_RESUME_DRIFT, f"train {cfg.name}: resume drift {drift}")
+    print(f"[smoke] train {cfg.name}: {r['resume_at']} steps and a {ckpt_bytes} B checkpoint "
+          f"in {first_s:.3f} s, resumed to step {r['steps']} in {second_s:.3f} s (load, "
+          f"{r['steps'] - r['resume_at']} steps, the final checkpoint); resume drift "
+          f"{drift:.3g} (< {TRAIN_RESUME_DRIFT}); launches after the resume {resumed_launches}")
+    return {"launches": launches, "resumed_launches": resumed_launches, "witness": witness,
+            "tok_s": tokens / wall, "parts_ms": parts, "peak_gb": peak_gb, "drift": drift}
+
+
+def _train_rwkv(dev) -> dict:
+    """(c) rwkv6-3b at full width, 4 of its 32 layers, through ``train_loop``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts
+    from repro_torch.launch.serve_lm import cut_depth
+    from repro_torch.launch.train import train_loop
+
+    r = TRAIN_RWKV
+    cfg = cut_depth(get_config(r["arch"]), r["layers"])
+    witness = _train_witness(cfg, dev, r, tuple(f"tmix.{n}" for n in (
+        "mu", "wr", "wk", "wv", "wg", "wo", "w0", "wa", "wb", "u", "ln_g")))
+    check(witness["launches"] == {"wkv6": 2 * cfg.n_layers},
+          f"train {cfg.name}: step 1 launched {witness['launches']}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    counts.reset()
+    t0 = time.perf_counter()
+    _, _, losses = train_loop(cfg, steps=r["steps"], batch=r["batch"], seq=r["seq"],
+                              seed=r["seed"], device=dev, times=times, log_every=2)
+    wall = time.perf_counter() - t0
+    launches = counts.snapshot()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == {"wkv6": 2 * cfg.n_layers * r["steps"]},
+          f"train {cfg.name}: {r['steps']} steps launched {launches}")
+    check(all(l == l and abs(l) < 1e3 for l in losses), f"train {cfg.name}: losses {losses}")
+    tokens = r["batch"] * r["seq"] * r["steps"]
+    parts = {k: v / r["steps"] for k, v in times.items()}
+    print(f"[smoke] train {cfg.name} ({r['layers']} of 32 layers, bf16) {r['steps']} steps of "
+          f"{r['batch']}x{r['seq']}: {wall:.3f} s, {tokens / wall:.1f} tok/s; a step "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in parts.items())}; peak memory {peak_gb:.3f} GB; "
+          f"launches {launches}; losses {losses}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "witness": witness, "tok_s": tokens / wall,
+            "parts_ms": parts, "peak_gb": peak_gb}
+
+
+def _train_backward_ms(dev) -> dict:
+    """The plain backward of each LM kernel at its training shape: attention
+    at qwen's (bf16), beside its forward and SDPA's backward (which the port
+    never calls), the recurrence at rwkv6's (f32, a loop over T)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    from repro_torch.kernels.wkv6.kernel import wkv6
+    from repro_torch.kernels.wkv6.ops import WKV6
+    from repro_torch.launch.timing import time_ms
+
+    c = QWEN_TRAIN_ATTN
+    q, k, v = (t.requires_grad_(True) for t in _attn_inputs(c, torch.bfloat16, dev, 500))
+    out = FlashAttention.apply(q, k, v, True, None)
+    g = torch.randn_like(out)
+    mine = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gt = g.transpose(1, 2)
+    theirs = torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True)
+    e = max(_rel(a, b.transpose(1, 2)) for a, b in zip(mine, theirs))
+    check(e < 2e-2, f"attention backward: the plain gradient against SDPA's {e}")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_bwd = time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
+                        n=5, runs=3, warmup=2)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True))
+    # the backward's least work: q, k, v and dO read once, dq, dk, dv written
+    # once; 10 D FLOP per unmasked pair (S recomputed, dV, dP, dQ, dK), 2.5
+    # times the forward's 4 D
+    _, fwd_flops = _attn_work(c, 2)
+    q_n, kv_n = c["B"] * c["Sq"] * c["Hq"] * c["D"], c["B"] * c["Sk"] * c["Hkv"] * c["D"]
+    bound, by = _bound_ms(2 * (3 * q_n + 4 * kv_n), 0)
+    if 2.5 * fwd_flops / PEAK_BF16_FLOPS * 1e3 > bound:
+        bound, by = 2.5 * fwd_flops / PEAK_BF16_FLOPS * 1e3, "operations"
+    attn = {"shape": c, "kernel_forward_ms": fwd_ms, "plain_backward_ms": plain_bwd,
+            "sdpa_backward_ms": sdpa_bwd, "backward_bound_ms": bound, "backward_bound_by": by,
+            "backward_rel_err_vs_sdpa": e}
+    print(f"[smoke] attention backward at {c} bf16: the plain backward (recompute and "
+          f"autograd, the gradient of the training path) {plain_bwd:.6f} ms, SDPA's "
+          f"backward {sdpa_bwd:.6f} ms (gradients within {e:.3g}), the backward's bound "
+          f"{bound:.6f} ms ({by}), the kernel forward {fwd_ms:.6f} ms")
+    del out, sdpa, mine, theirs
+
+    B, T, H, K, V = TRAIN_RWKV["batch"], TRAIN_RWKV["seq"], 40, 64, 64
+    r, kk, vv, d, u, _ = _wkv_inputs(B, T, H, K, V, dev, 501, with_state=False)
+    ins = [t.requires_grad_(True) for t in (r, kk, vv, d, u)]
+    o, s = WKV6.apply(*ins, None)
+    go = torch.randn_like(o)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: wkv6(*ins))
+    plain_bwd = time_ms(lambda: torch.autograd.grad(o, ins, go, retain_graph=True),
+                        n=1, runs=3, warmup=1)
+    # the backward's least work: r, k, v, decay and dO read once, u too, dr,
+    # dk, dv, ddecay and du written once; per (b, t, h, k, v) the reverse
+    # sweep of the state's adjoint (decay and add, 2 FLOP), the state
+    # rebuilt (2) and the products into dr, dk, dv, ddecay and the bonus'
+    # terms (8): 12 FLOP
+    bound, by = _bound_ms(4 * (9 * B * T * H * K + 2 * H * K), 12 * B * T * H * K * V)
+    wkv = {"shape": (B, T, H, K, V), "kernel_forward_ms": fwd_ms, "plain_backward_ms": plain_bwd,
+           "backward_bound_ms": bound, "backward_bound_by": by}
+    print(f"[smoke] wkv6 backward at (B, T, H, K, V)={(B, T, H, K, V)} f32: the plain backward "
+          f"(wkv6_ref recomputed under autograd, a loop over T) {plain_bwd:.6f} ms, the "
+          f"backward's bound {bound:.6f} ms ({by}), the kernel forward {fwd_ms:.6f} ms")
+    return {"flash_attention": attn, "wkv6": wkv}
+
+
+def phase_train(dev) -> dict:
+    """20: LM training.  Returns each path's launches and readings."""
+    golden = _train_golden(dev)
+    qwen = _train_qwen(dev)
+    rwkv = _train_rwkv(dev)
+    backward = _train_backward_ms(dev)
+    return {"golden": golden, "qwen": qwen, "rwkv": rwkv, "backward": backward}
+
+
 # the attention kernels' instantiations that must be in the libraries, by
 # Itanium-mangled template arguments: the CUDA-core kernel's 16-chunk
 # accumulator (D 256) in f32 and bf16, the tensor-core kernel's 1, 2 and 4
@@ -4372,9 +4739,12 @@ def main() -> None:
     # default, stated; cuDNN's default is TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels.update(timed("lm_kernels", phase_lm_kernels, dev))
-    timed("golden_lm", phase_golden_lm, dev)
-    serving = timed("serve_lm", phase_serve_lm, dev)
+    # the serving phases run as serving does, without autograd (the
+    # parameters are trainable); phase 20 trains
+    serve = torch.inference_mode()
+    kernels.update(timed("lm_kernels", serve(phase_lm_kernels), dev))
+    timed("golden_lm", serve(phase_golden_lm), dev)
+    serving = timed("serve_lm", serve(phase_serve_lm), dev)
     attn = kernels["flash_attention"]
     for variant, fields in attn["variants"].items():
         fields["launches"] = serving.get(f"flash_attention.{variant}", 0)
@@ -4384,7 +4754,7 @@ def main() -> None:
     kernels["wkv6"]["launches"] = serving.get("wkv6", 0)
     check(kernels["wkv6"]["launches"] > 0, "the serving path launched no wkv6 kernel")
     # and the MoE and VLM prefills its second path
-    moe_vlm = timed("moe_vlm", phase_moe_vlm, dev)
+    moe_vlm = timed("moe_vlm", serve(phase_moe_vlm), dev)
     attn["moe_vlm_launches"] = moe_vlm["launches"]
     attn["moe_vlm_path"] = (
         "prefills of qwen3-moe-235b-a22b (8 of 94 layers), llama4-scout-17b-a16e (4 of 48) and "
@@ -4393,7 +4763,7 @@ def main() -> None:
     check(attn["moe_vlm_launches"] == sum(n or 40 for _, n in MOE_VLM),
           f"phase 18 launched {attn['moe_vlm_launches']} tensor-core flash_attention")
     # and Griffin's local attention (D 256) and Whisper's encoder and decoder its third
-    hybrid_encdec = timed("hybrid_encdec", phase_hybrid_encdec, dev)
+    hybrid_encdec = timed("hybrid_encdec", serve(phase_hybrid_encdec), dev)
     attn["hybrid_encdec_launches"] = hybrid_encdec["launches"]
     attn["hybrid_encdec_path"] = (
         "recurrentgemma-9b's prefill (38 layers, 12 of them local attention at D 256, 4 x "
@@ -4403,6 +4773,32 @@ def main() -> None:
     attn["hybrid_encdec_shapes"] = hybrid_encdec["attention"]
     check(attn["hybrid_encdec_launches"] == 12 + 64 + 32,
           f"phase 19 launched {attn['hybrid_encdec_launches']} tensor-core flash_attention")
+
+    # and training its fourth path (the kernels' forwards, each launched again
+    # in the remat recompute; their backward is the plain version's gradient)
+    trained = timed("train", phase_train, dev)
+    attn["train_launches"] = {
+        "golden_train": {k: n for k, n in trained["golden"].items() if k.startswith("flash")},
+        TRAIN_QWEN["arch"]: trained["qwen"]["launches"],
+        TRAIN_QWEN["arch"] + " resumed": trained["qwen"]["resumed_launches"],
+    }
+    attn["train_path"] = (
+        "train_loop: golden_train.json's f32 smoke configs (4 steps each, CUDA-core variant), "
+        "qwen1.5-0.5b uncut in bf16 (16 steps of 8 x 1,024 tokens, 24 forward and 24 "
+        "recompute launches a step) and its resume from step 8, phase 20")
+    attn["train_shape"] = trained["backward"]["flash_attention"]
+    check(sum(attn["train_launches"][TRAIN_QWEN["arch"]].values()) > 0,
+          "the training path launched no flash_attention kernel")
+    kernels["wkv6"]["train_launches"] = {
+        "golden_train": {k: n for k, n in trained["golden"].items() if k == "wkv6"},
+        f"{TRAIN_RWKV['arch']} ({TRAIN_RWKV['layers']} layers)": trained["rwkv"]["launches"],
+    }
+    kernels["wkv6"]["train_path"] = (
+        "train_loop: golden_train.json's rwkv6 smoke config (4 steps) and rwkv6-3b at full "
+        "width, 4 of 32 layers, bf16 (4 steps of 2 x 1,024 tokens, 4 forward and 4 recompute "
+        "launches a step), phase 20")
+    kernels["wkv6"]["train_shape"] = trained["backward"]["wkv6"]
+    check(sum(trained["rwkv"]["launches"].values()) > 0, "the training path launched no wkv6")
 
     print(f"[smoke] phase walls (s): {walls}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

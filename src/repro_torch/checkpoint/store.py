@@ -21,11 +21,17 @@ Layout:  <dir>/step_<N>/  arrays.npz  (the flattened tree's leaves)
 * **async**: ``save_checkpoint(..., blocking=False)`` copies to host memory
   synchronously and writes on a daemon thread.
 
-A tree is a nested ``dict`` of tensors and numpy arrays.  Each leaf is
-keyed as the JAX package keys a dict leaf: its path parts ``[{k!r}]``
-joined by ``/``, dict keys in sorted order, so ``{"b": {"c": x}}`` is
-stored under ``"['b']/['c']"`` and a file written by either package reads
-in the other.  Tensors go to the host with ``.detach().cpu().numpy()``.
+A tree nests dicts, lists, tuples and NamedTuples of tensors and numpy
+arrays.  Each leaf is keyed as the JAX package keys it: its path parts
+joined by ``/``, a dict key as ``[{k!r}]`` (keys in sorted order), a list or
+tuple index as ``[i]`` and a NamedTuple field as ``.name``, so
+``{"b": {"c": x}}`` is stored under ``"['b']/['c']"`` and a training state
+``(params, OptState)`` under ``"[0]/['blocks']/['attn']/['wq']"``,
+``"[1]/.step"`` and ``"[1]/.m/['tail']/[0]/['a']"``; a file written by
+either package reads in the other.  Tensors go to the host with
+``.detach().cpu()``; a bfloat16 leaf, which numpy cannot hold, is stored as
+JAX stores one, its raw bits as ``|V2``, and a ``|V2`` array is read back as
+those bits viewed as ``torch.bfloat16``.
 The manifest is MessagePack, written and read by the port's own codec
 (:mod:`repro_torch.checkpoint._msgpack`).
 """
@@ -126,19 +132,35 @@ def call_with_retry(fn: Callable[[], Any], policy: Optional[RetryPolicy],
 # -- the tree <-> named leaves -------------------------------------------------
 
 
-def _leaves(tree, path=()):
-    """(path parts, leaf) pairs of a nested dict, dict keys sorted as the
-    JAX package flattens them; None is an empty subtree."""
+def _children(tree):
+    """(key part, child) pairs of an inner node in the JAX package's
+    flattening order, or None for a leaf."""
     if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (f"[{k!r}]",))
+        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{name}", child) for name, child in zip(tree._fields, tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", child) for i, child in enumerate(tree)]
+    return None
+
+
+def _leaves(tree, path=()):
+    """(path parts, leaf) pairs of a tree, in the JAX package's order;
+    None is an empty subtree."""
+    children = _children(tree)
+    if children is not None:
+        for part, child in children:
+            yield from _leaves(child, path + (part,))
     elif tree is not None:
         yield path, tree
 
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:  # raw bits, as JAX's savez writes them
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
@@ -161,7 +183,7 @@ def save_checkpoint(
     retry: Optional[RetryPolicy] = None,
     fault_hook: Optional[Callable[[str], None]] = None,
 ) -> str:
-    """Snapshot ``tree`` (a nested dict of tensors/arrays) + ``extra``
+    """Snapshot ``tree`` (a tree of tensors/arrays) + ``extra``
     metadata; returns the ``step_<N>`` path."""
     payload = dict(_flatten(tree))
     meta = {
@@ -278,7 +300,13 @@ def verify_checksums(manifest: dict, arrays: dict, *, where: str) -> None:
 
 def _as_template(arr: np.ndarray, leaf, device) -> torch.Tensor:
     """``arr`` as a tensor on ``device`` with ``leaf``'s dtype.  Words stored
-    as uint32 enter an int32 template with the same bits."""
+    as uint32 enter an int32 template with the same bits; ``|V2`` holds
+    bfloat16 bits."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
+        return t.to(device, leaf.dtype if isinstance(leaf, torch.Tensor) else torch.bfloat16)
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device, torch.bfloat16)
     if isinstance(leaf, torch.Tensor):
         np_dtype = torch.empty((), dtype=leaf.dtype).numpy().dtype
     elif hasattr(leaf, "dtype"):
@@ -297,9 +325,9 @@ def restore_checkpoint(
     retry: Optional[RetryPolicy] = None,
     fault_hook: Optional[Callable[[str], None]] = None,
 ):
-    """Restore into the structure of ``template`` (a nested dict): each
-    leaf comes back as a tensor on ``device`` (None: the card) with the
-    template leaf's dtype.
+    """Restore into the structure of ``template`` (a tree as ``save_checkpoint``
+    takes): each leaf comes back as a tensor on ``device`` (None: the card)
+    with the template leaf's dtype.
 
     Returns (tree, step, extra)."""
     from repro_torch.api.session import resolve_device
@@ -327,6 +355,10 @@ def restore_checkpoint(
     def build(tree, path=()):
         if isinstance(tree, dict):
             return {k: build(v, path + (f"[{k!r}]",)) for k, v in tree.items()}
+        children = _children(tree)
+        if children is not None:
+            built = [build(child, path + (part,)) for part, child in children]
+            return type(tree)(*built) if hasattr(tree, "_fields") else type(tree)(built)
         if tree is None:
             return None
         return _as_template(raw["/".join(path)], tree, dev)

@@ -1,11 +1,12 @@
-"""Quickstart: the paper's solver, three engines behind one façade.
+"""Quickstart: the paper's solver, three engines behind one façade, and a
+small LM that learns.
 
-The port's twin of ``examples/quickstart.py``, part 1: minimum vertex cover
-on G(50, 4/49, seed 7) by the sequential reference, the asynchronous
-protocol simulator (host) and the SPMD engine (on ``--device``, the card by
-default).  Part 2 of the JAX example trains a small LM; the port has no
-training path yet (ROADMAP queue 1, item 14f), so the twin stops after
-part 1.
+The port's twin of ``examples/quickstart.py``, on ``--device`` (the card by
+default).  Part 1: minimum vertex cover on G(50, 4/49, seed 7) by the
+sequential reference, the asynchronous protocol simulator (host) and the
+SPMD engine.  Part 2: the qwen1.5 smoke config trained 60 steps on the
+synthetic pipeline through ``repro_torch.launch.train.train_loop`` (the
+port's seeded init, so its losses are its own, not JAX's).
 
   PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -15,7 +16,9 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.api import SolveConfig, SolverSession
+from repro_torch.configs import get_smoke_config
 from repro_torch.graphs.generators import erdos_renyi
+from repro_torch.launch.train import train_loop
 from repro_torch.problems.sequential import verify_cover
 
 
@@ -47,9 +50,15 @@ def main(argv=None) -> bool:
         f"({r.rounds} supersteps, {r.tasks_transferred} transfers, "
         f"verified={ok})"
     )
-    print("(part 2, training a small LM, waits for the port's training path)")
     if not ok:
         raise SystemExit("the engines disagree")
+
+    # --- 2. the LM substrate: a tiny qwen-style model learns --------------
+    lm = get_smoke_config("qwen1_5_0_5b")
+    print(f"\ntraining {lm.name} (d={lm.d_model}, L={lm.n_layers}) ...")
+    _, _, losses = train_loop(lm, steps=60, batch=8, seq=64, log_every=20, device=args.device)
+    first, last = sum(losses[:6]) / 6, sum(losses[-6:]) / 6
+    print(f"loss {first:.3f} -> {last:.3f} ({'OK' if last < first else 'FLAT'})")
     return ok
 
 

@@ -27,6 +27,7 @@ from repro_torch.models.registry import get_model
 from repro_torch.serving.balancer import simulate
 
 
+@torch.inference_mode()
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="repro_torch.examples.serve_lm")
     ap.add_argument("--device", default="cuda")

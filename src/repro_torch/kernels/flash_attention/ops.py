@@ -16,6 +16,16 @@ same semantics:
 the Pallas kernel never ran outside its tests.  In the port the kernel is
 the path; ``"ref"`` and ``"blockwise"`` stay as named plain versions for
 the tests and the card smoke.
+
+The kernel has no backward of its own.  ``FlashAttention``, the autograd
+Function that ``attention_op(impl="kernel")`` goes through when grad mode
+is on and an input requires grad, launches the kernel forward and saves
+only q, k and v; its backward recomputes the kernel's plain version
+(``flash_attention_plain``: the blockwise online softmax on f32 copies)
+under autograd and returns that gradient.  It is the gradient JAX takes:
+the JAX package has no ``custom_vjp`` for its Pallas kernel and trains
+through ``"blockwise"``.  Under ``no_grad`` or ``inference_mode`` the kernel
+is called directly and nothing is saved.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 NEG_INF = -1e30
@@ -81,9 +91,32 @@ def blockwise_attention(
     return out.to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` forward; the gradient of its plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        causal, window = ctx.mask
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flash_attention_plain(*qkv, causal=causal, window=window)
+            grads = torch.autograd.grad(out, qkv, g)
+        return (*grads, None, None)
+
+
 def attention_op(q, k, v, *, causal=True, window=None, impl: str = "kernel"):
-    """Dispatch: impl in {'kernel', 'blockwise', 'ref'}."""
+    """Dispatch: impl in {'kernel', 'blockwise', 'ref'}.  The kernel goes
+    through ``FlashAttention`` when a gradient is to be taken."""
     if impl == "kernel":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention(q, k, v, causal=causal, window=window)
     if impl == "blockwise":
         return blockwise_attention(q, k, v, causal=causal, window=window)

@@ -7,6 +7,17 @@ plain version.  The kernel runs the recurrence in time order, so the JAX
 wrapper's padding of T to a chunk multiple is gone.  ``wkv6_decode_step``
 is the single-token form of the decode path (plain torch, as in the JAX
 package).
+
+The kernel has no backward of its own.  ``WKV6``, the autograd Function
+that ``wkv6_op(impl="kernel")`` goes through when grad mode is on and an
+input requires grad, launches the kernel forward and saves only its
+inputs; its backward recomputes the kernel's plain version (``wkv6_ref`` on
+the decays clipped to [1e-30, 1], the kernel's function) under autograd and
+returns that gradient, for the output and the final state alike (an
+initial state that requires grad gets one too).  It is the gradient JAX
+takes: the JAX package trains through ``"ref"``.  The plain backward loops
+over T in Python.  Under ``no_grad`` or ``inference_mode`` the kernel is
+called directly.
 """
 
 from __future__ import annotations
@@ -17,9 +28,36 @@ from repro_torch.kernels.wkv6.kernel import wkv6
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 
+def _plain(r, k, v, decay, u, initial_state):
+    return wkv6_ref(r, k, v, decay.clamp(1e-30, 1.0), u, initial_state)
+
+
+class WKV6(torch.autograd.Function):
+    """``wkv6`` forward; the gradient of its plain version."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, decay, u, initial_state):
+        ctx.save_for_backward(r, k, v, decay, u, initial_state)
+        return wkv6(r, k, v, decay, u, initial_state)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(True) for t in saved]
+            out, state = _plain(*inputs)
+            wrt = [t for t in inputs if t is not None]
+            grads = iter(torch.autograd.grad((out, state), wrt, (g_out, g_state)))
+        return tuple(None if t is None else next(grads) for t in inputs)
+
+
 def wkv6_op(r, k, v, decay, u, initial_state=None, *, impl: str = "kernel"):
-    """(B, T, H, K/V) inputs -> (out, final_state).  impl: 'kernel' | 'ref'."""
+    """(B, T, H, K/V) inputs -> (out, final_state).  impl: 'kernel' | 'ref'.
+    The kernel goes through ``WKV6`` when a gradient is to be taken."""
     if impl == "kernel":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (r, k, v, decay, u, initial_state)):
+            return WKV6.apply(r, k, v, decay, u, initial_state)
         return wkv6(r, k, v, decay, u, initial_state)
     if impl == "ref":
         return wkv6_ref(r, k, v, decay, u, initial_state)

@@ -30,7 +30,7 @@ for the decode steps:
 * the hand-written kernels' launches.
 
 The traces go to ``--trace-dir`` (default ``build/repro_torch_profile/``).
-Needs a CUDA device.
+Runs under ``torch.inference_mode()``, as serving does.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -120,6 +120,7 @@ def _report(label: str, prof, trace: Path, wall_s: float, top: int, per: int) ->
         print(f"[profile_lm]   {ms:10.3f}  {ms / total_ms:6.3f}  {cnt:7d}  {name[:100]}")
 
 
+@torch.inference_mode()
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b")

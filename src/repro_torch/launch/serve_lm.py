@@ -11,7 +11,9 @@ carries seeded stub frame embeddings (B, enc_seq, d): the prefill encodes
 them, and ``greedy_decode`` primes the cross-attention cache from the same
 frames, so decode and forward hear the same audio (given no frames it primes
 with zeros, as the JAX example does).  Weights are the port's seeded init
-(no weights exist in the repo).  ``--layers N`` cuts depth and leaves every
+(no weights exist in the repo).  ``main`` and ``greedy_decode`` run under
+``torch.inference_mode()``: the parameters are trainable, and serving builds
+no graph.  ``--layers N`` cuts depth and leaves every
 width alone (JAX's ``launch/dryrun.py`` cuts depth the same way, an
 encoder-decoder's encoder and decoder alike): a full-width
 qwen3-moe-235b-a22b is ~470 GB in bf16, 8 of its 94 layers ~42 GB.  It runs
@@ -74,6 +76,7 @@ def prompt_batch(cfg, prompts: torch.Tensor, seed: int) -> dict:
     return batch
 
 
+@torch.inference_mode()
 def greedy_decode(model, params, prompts: torch.Tensor, gen: int, frames=None):
     """prompts (B, P) -> (generated (B, gen), the decode path's logits at
     the last prompt token (B, vocab)), through the decode cache.  An
@@ -107,6 +110,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.inference_mode()
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b",

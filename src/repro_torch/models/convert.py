@@ -10,10 +10,16 @@ the layer index after a stacked subtree's name: ``blocks``, Griffin's
 unstacked units.
 
 * ``load_jax_params(model, tree)`` takes the JAX package's parameter tree
-  (numpy arrays; the stacked subtrees' leaves ``(L, ...)``), splits the
-  stacked leaves per layer and loads them, cast to each parameter's dtype
-  (an MoE router and Griffin's ``b_a``, ``b_x`` and ``lam`` stay f32 in a
-  bf16 model, as in JAX).
+  (numpy arrays or tensors; the stacked subtrees' leaves ``(L, ...)``),
+  splits the stacked leaves per layer and loads them, cast to each
+  parameter's dtype (an MoE router and Griffin's ``b_a``, ``b_x`` and
+  ``lam`` stay f32 in a bf16 model, as in JAX).
+* ``export_params(model)`` is the reverse: the model's parameters as a JAX
+  tree of detached tensors in their own dtypes, the stacked leaves stacked.
+  ``export_tree(model, named)`` and ``import_tree(tree)`` carry any tree
+  keyed like the parameters (AdamW's ``m`` and ``v``) between the port's
+  flat dict of parameter names and the JAX layout, so a training state
+  ``(params, OptState)`` is checkpointed in JAX's layout.
 * ``numpy_params(cfg, seed)`` builds a tree of that layout from a numpy
   generator.  The tests feed the same tree to both packages, and the card
   rebuilds it without JAX.  ``patch_embeds(cfg, batch, seed)`` draws a VLM
@@ -47,24 +53,59 @@ def _flatten(tree, prefix: str = ""):
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through f32
         a = a.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
-    """Load a JAX parameter tree into ``model`` (every leaf, strictly)."""
-    state = {}
+def import_tree(tree: dict) -> dict:
+    """A tree in the JAX layout -> a flat dict keyed by the port's parameter
+    names, the stacked leaves split per layer (views of the stacked ones)."""
+    flat = {}
     for name, leaf in _flatten(tree):
         head, _, rest = name.partition(".")
+        leaf = _tensor(leaf)
         if head in STACKED:
             for i in range(leaf.shape[0]):
-                state[f"{head}.{i}.{rest}"] = _tensor(leaf[i])
+                flat[f"{head}.{i}.{rest}"] = leaf[i]
         else:
-            state[name] = _tensor(leaf)
-    model.load_state_dict(state, strict=True)
+            flat[name] = leaf
+    return flat
+
+
+def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
+    """Load a JAX parameter tree into ``model`` (every leaf, strictly)."""
+    model.load_state_dict(import_tree(tree), strict=True)
     return model
+
+
+def export_tree(model: nn.Module, named: dict) -> dict:
+    """``named`` (a flat dict keyed by ``model``'s parameter names, as
+    ``dict(model.named_parameters())`` or AdamW's moments over it) as a tree
+    in the JAX layout of ``param_shapes(model.cfg)``, the stacked leaves
+    stacked over layers."""
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v, path + (str(i),)) for i, v in enumerate(node)]
+        head, rest = path[0], ".".join(path[1:])
+        if head in STACKED:
+            return torch.stack([named[f"{head}.{i}.{rest}"] for i in range(node[0][0])])
+        return named[".".join(path)]
+
+    with torch.no_grad():
+        return build(param_shapes(model.cfg), ())
+
+
+def export_params(model: nn.Module) -> dict:
+    """The model's parameters as a JAX parameter tree of detached tensors
+    (each in its parameter's dtype)."""
+    return export_tree(model, {k: v.detach() for k, v in model.named_parameters()})
 
 
 def _stack(node, n: int):

@@ -1,9 +1,13 @@
-"""Whisper-style encoder-decoder backbone, for serving.
+"""Whisper-style encoder-decoder backbone.
 
 The port of ``repro/models/encdec.py``: ``encode``, the cross-attention
 (``cross_attend``, ``enc_kv``), ``dec_block``, ``init_lm``, ``forward``,
-``init_decode_cache``, ``prime_cross_cache`` and ``decode_fn``.  The conv/mel
-frontend is a stub in both packages: a batch carries precomputed frame
+``loss_fn``, ``init_decode_cache``, ``prime_cross_cache`` and ``decode_fn``.
+``encode`` and ``forward`` build a graph when grad mode is on, every encoder
+and decoder block rematerialised (``layers.remat``) as JAX's
+``jax.checkpoint`` does; serving calls them under ``torch.inference_mode()``,
+and the decode path runs under ``no_grad``.  The conv/mel frontend is a stub
+in both packages: a batch carries precomputed frame
 embeddings (B, enc_seq, d), to which the encoder adds sinusoidal positions
 before its bidirectional blocks (RoPE over ``arange(enc_seq)`` on top, as JAX
 applies it).  The decoder is a causal stack with cross-attention into the
@@ -17,8 +21,7 @@ with ``attn_impl="kernel"`` a forward is ``n_enc_layers`` non-causal and
 ``prime_cross_cache`` ``n_enc_layers`` non-causal ones.  Cross-attention is
 plain torch einsum, as JAX computes it outside any Pallas kernel; decode
 launches no kernel.  ``decode_fn`` reads the cache's cross K/V whether or not
-``primed`` is set, as JAX's does.  Serving only: ``loss_fn`` waits with
-training (ROADMAP queue 1, item 14f).
+``primed`` is set, as JAX's does.
 """
 
 from __future__ import annotations
@@ -88,18 +91,21 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None, device=N
     return EncDecLM(cfg, generator, device)
 
 
-@torch.no_grad()
 def encode(model: EncDecLM, frames: torch.Tensor, *, attn_impl: str = "kernel") -> torch.Tensor:
     """frames (B, enc_seq, d) -> the encoder's output (B, enc_seq, d)."""
     cfg = model.cfg
     x = frames.to(L.torch_dtype(cfg))
     x = x + sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for bp in model.enc_blocks:
+
+    def enc_block(bp, x):
         h, _ = L.attention_apply(cfg, bp.attn, L.rmsnorm(x, bp.ln1, cfg.norm_eps), positions,
                                  causal=False, attn_impl=attn_impl)
         x = x + h
-        x = x + L.gelu_mlp_apply(bp.mlp, L.rmsnorm(x, bp.ln2, cfg.norm_eps))
+        return x + L.gelu_mlp_apply(bp.mlp, L.rmsnorm(x, bp.ln2, cfg.norm_eps))
+
+    for bp in model.enc_blocks:
+        x = L.remat(lambda x, bp=bp: enc_block(bp, x), x)
     return L.rmsnorm(x, model.enc_ln, cfg.norm_eps)
 
 
@@ -149,7 +155,6 @@ def dec_block(cfg: ModelConfig, bp: DecBlock, x, positions, enc_out, *, cache=No
     return x, new_kv, xkv
 
 
-@torch.no_grad()
 def forward(model: EncDecLM, tokens: torch.Tensor, *, frames: torch.Tensor | None = None,
             attn_impl: str = "kernel") -> torch.Tensor:
     """The decoder teacher-forced over the encoded frames: tokens (B, S),
@@ -158,12 +163,20 @@ def forward(model: EncDecLM, tokens: torch.Tensor, *, frames: torch.Tensor | Non
         raise ValueError("the encdec forward needs frames")
     cfg = model.cfg
     enc_out = encode(model, frames, attn_impl=attn_impl)
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
     for bp in model.dec_blocks:
-        x, _, _ = dec_block(cfg, bp, x, positions, enc_out, attn_impl=attn_impl)
+        x = L.remat(lambda x, bp=bp: dec_block(cfg, bp, x, positions, enc_out,
+                                               attn_impl=attn_impl)[0], x)
     x = L.rmsnorm(x, model.ln_f, cfg.norm_eps)
     return x @ model.unembed
+
+
+def loss_fn(model: EncDecLM, batch: dict, *, attn_impl: str = "kernel") -> torch.Tensor:
+    """The mean f32 cross-entropy of ``batch["labels"]``, the decoder over
+    ``batch["frames"]``."""
+    logits = forward(model, batch["tokens"], frames=batch["frames"], attn_impl=attn_impl)
+    return L.token_ce(logits, batch["labels"])
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -195,7 +208,7 @@ def decode_fn(model: EncDecLM, cache: dict, tokens: torch.Tensor):
     advanced; the same dict is returned.  The cross K/V are read as they
     stand: a cache that was never primed attends over zeros, as in JAX."""
     cfg = model.cfg
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     pos = cache["len"]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     for i, bp in enumerate(model.dec_blocks):

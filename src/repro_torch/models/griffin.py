@@ -1,10 +1,13 @@
 """Griffin-style hybrid (recurrentgemma): RG-LRU recurrent blocks and local
 attention, tiled in the config's ``pattern`` (recurrentgemma: rec, rec, attn).
 
-The port of ``repro/models/griffin.py``, for serving: ``RecBlock``,
-``causal_conv``, ``rglru``, ``rec_apply``, the group plan, ``init_lm``,
-``forward``, ``init_decode_cache`` and ``decode_fn`` with its ring-buffer
-window attention.  JAX scans ``n_groups`` full pattern units and runs the
+The port of ``repro/models/griffin.py``: ``RecBlock``, ``causal_conv``,
+``rglru``, ``rec_apply``, the group plan, ``init_lm``, ``forward``,
+``loss_fn``, ``init_decode_cache`` and ``decode_fn`` with its ring-buffer
+window attention.  ``forward`` builds a graph when grad mode is on, each full
+unit rematerialised (``layers.remat``) and the tail not, as JAX checkpoints
+its scanned groups; serving calls it under ``torch.inference_mode()``.  Λ is
+trained, as in JAX.  JAX scans ``n_groups`` full pattern units and runs the
 remainder (the tail) unscanned; here ``groups`` and ``tail`` are
 ``nn.ModuleList``s of units, each unit's layers in ``sub`` (the JAX tree's
 names: ``groups.{g}.sub.{j}``, ``tail.{t}.sub.0``).  Like JAX's init, a
@@ -19,14 +22,15 @@ JAX runs the recurrence with ``jax.lax.associative_scan``; ``linear_scan``
 runs it as a Hillis–Steele scan over (a, b) pairs in plain torch, ceil(log2
 T) doublings (12 at T 4,096), where a loop over time would be T steps of
 launches.  The two orders of association differ in the last f32 bits.  A
-single token against a state takes the step ``a h + b``, as in JAX.
+single token against a state takes the step ``a h + b``, as in JAX.  Under
+autograd each doubling writes a new tensor (autograd refuses an in-place
+write into a tensor it saved); without it the doublings write in place.
 
 The forward's local attention goes through ``attention_apply(causal=True,
 window=cfg.window)`` and so, with ``attn_impl="kernel"``, one
 ``flash_attention`` launch per attention layer on the card (at D 256 in
 bf16 on the tensor cores).  Decode attends over the ring in plain torch, as
-JAX's is plain jnp, and launches no kernel.  Serving only: ``loss_fn`` waits
-with training (ROADMAP queue 1, item 14f).
+JAX's is plain jnp, and launches no kernel.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ class RecBlock(nn.Module):
         self.b_a = L.param((dr,), f32, fill=0.0, device=device)
         self.w_x = L.dense(dr, dr, dt, generator, device)
         self.b_x = L.param((dr,), f32, fill=0.0, device=device)
-        self.lam = nn.Parameter(lru_lambda(dr, device), requires_grad=False)
+        self.lam = nn.Parameter(lru_lambda(dr, device))
         self.w_out = L.dense(dr, d, dt, generator, device)
 
 
@@ -89,9 +93,18 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = N
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along dim 1: the Hillis–Steele
     scan of the pairs (a, b) under (a1, b1) ∘ (a2, b2) = (a1 a2, b1 a2 + b2),
-    JAX's ``combine``, in ceil(log2 T) doublings."""
-    a, h = a.clone(), b.clone()
+    JAX's ``combine``, in ceil(log2 T) doublings; the same values in place
+    or, when a gradient is to be taken, out of place."""
     T, d = a.shape[1], 1
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        h = b
+        while d < T:
+            h = torch.cat([h[:, :d], h[:, :-d] * a[:, d:] + h[:, d:]], dim=1)
+            if 2 * d < T:
+                a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+            d *= 2
+        return h
+    a, h = a.clone(), b.clone()
     while d < T:
         h[:, d:] = h[:, :-d] * a[:, d:] + h[:, d:]  # the right side is read whole first
         if 2 * d < T:
@@ -215,16 +228,29 @@ def sub_apply(cfg: ModelConfig, kind: str, sp: Sub, x, positions, *, state=None,
     return x + m, new_state
 
 
-@torch.no_grad()
 def forward(model: GriffinLM, tokens: torch.Tensor, *, attn_impl: str = "kernel"):
     """tokens (B, S) -> logits (B, S, vocab)."""
     cfg = model.cfg
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    n_groups, tail = plan(cfg)
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
-    for kind, sp in layers(model):
-        x, _ = sub_apply(cfg, kind, sp, x, positions, attn_impl=attn_impl)
+
+    def unit_apply(unit, kinds, x):
+        for kind, sp in zip(kinds, unit.sub):
+            x, _ = sub_apply(cfg, kind, sp, x, positions, attn_impl=attn_impl)
+        return x
+
+    for g in range(n_groups):
+        x = L.remat(lambda x, unit=model.groups[g]: unit_apply(unit, cfg.pattern, x), x)
+    for kind, unit in zip(tail, model.tail):
+        x = unit_apply(unit, (kind,), x)
     x = L.rmsnorm(x, model.ln_f, cfg.norm_eps)
     return x @ model.unembed
+
+
+def loss_fn(model: GriffinLM, batch: dict, *, attn_impl: str = "kernel") -> torch.Tensor:
+    """The mean f32 cross-entropy of ``batch["labels"]``."""
+    return L.token_ce(forward(model, batch["tokens"], attn_impl=attn_impl), batch["labels"])
 
 
 # -- decode -------------------------------------------------------------------------
@@ -263,7 +289,7 @@ def decode_fn(model: GriffinLM, cache: dict, tokens: torch.Tensor):
     it as a traced scalar)."""
     cfg = model.cfg
     n_groups, tail = plan(cfg)
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     pos = cache["len"]
 
     def layer_apply(kind, sp, st, x):

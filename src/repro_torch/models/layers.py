@@ -1,4 +1,4 @@
-"""Building-block layers of the LM serving path.
+"""Building-block layers of the LM scaffold (serving and training).
 
 The port of ``repro/models/layers.py``.  Parameters live in ``nn.Module``s
 in the JAX package's layout (a dense weight is ``(d_in, d_out)`` and is
@@ -7,8 +7,13 @@ applied as ``x @ W``), so a JAX parameter tree loads leaf for leaf
 are kept one by one: rmsnorm and rope compute in f32 and cast back to x's
 dtype; matmuls run in the parameters' dtype.
 
-Left out: ``SCAN_UNROLL``, ``REMAT_POLICY`` and the sharding calls, which
-serve only XLA lowering.  ``jax.nn.gelu`` defaults to the tanh
+Parameters are trainable (``requires_grad``); serving runs under
+``torch.inference_mode()``, so its forwards build no graph.  ``remat`` is the
+per-block rematerialisation of training, the counterpart of ``jax.checkpoint``
+with JAX's default ``nothing_saveable`` policy: a block keeps only its
+inputs and reruns its forward in the backward pass.  Left out:
+``SCAN_UNROLL``, ``REMAT_POLICY``'s ``"dots"`` option and the sharding
+calls, which serve only XLA lowering.  ``jax.nn.gelu`` defaults to the tanh
 approximation, so the GELU MLP (Griffin, Whisper) uses
 ``F.gelu(approximate="tanh")``, not torch's default erf.
 """
@@ -18,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention_op
@@ -28,17 +34,42 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def param(shape, dtype, *, std=None, fill=None, generator=None, device=None) -> nn.Parameter:
-    """A frozen parameter: normal(0, std) from ``generator``, or ``fill``."""
+    """A trainable parameter: normal(0, std) from ``generator``, or ``fill``."""
     if fill is not None:
         t = torch.full(shape, fill, dtype=torch.float32, device=device)
     else:
         t = torch.randn(shape, generator=generator, device=device) * std
-    return nn.Parameter(t.to(dtype), requires_grad=False)
+    return nn.Parameter(t.to(dtype))
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) when a gradient is to be
+    taken; a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def dense(d_in, d_out, dtype, generator, device) -> nn.Parameter:
     """A (d_in, d_out) weight, normal with std d_in^-0.5."""
     return param((d_in, d_out), dtype, std=d_in**-0.5, generator=generator, device=device)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` through ``F.embedding``, whose gradient adds each
+    row's contributions in a fixed order (the gradient of an index
+    expression is scattered with atomic adds, so it varies run to run)."""
+    return F.embedding(tokens, table)
+
+
+def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in f32: logsumexp minus the gold logit, as the
+    JAX loss computes it."""
+    l32 = logits.float()
+    lse = torch.logsumexp(l32, dim=-1)
+    gold = torch.gather(l32, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
 
 
 # -- norms ----------------------------------------------------------------------

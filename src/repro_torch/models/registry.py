@@ -1,10 +1,11 @@
-"""Model dispatch: one serving interface over the ported families.
+"""Model dispatch: one interface over the ported families.
 
 The port of ``repro/models/registry.py``.  ``get_model(cfg)`` returns a
 ``Model`` facade with
 
   init(generator=None, device=None) -> params (an nn.Module)
-  forward(params, batch) -> logits (B, S, vocab)
+  loss_fn(params, batch) -> the scalar training loss (a graph)
+  forward(params, batch) -> logits (B, S, vocab), under inference_mode
   init_decode_cache(batch, max_len, device=None) -> cache
   decode_fn(params, cache, tokens) -> (logits, cache)
 
@@ -12,15 +13,19 @@ for every family the JAX package serves: ``dense``, ``moe``, ``vlm``,
 ``ssm``, ``hybrid`` (Griffin) and ``encdec`` (Whisper).  A ``vlm`` batch may
 carry ``patch_embeds`` (B, n_patches, d), prepended to the tokens as the JAX
 facade's ``fwd`` does; an ``encdec`` batch carries ``frames`` (B, enc_seq,
-d).  An unknown family raises ``ValueError``, as JAX's ``get_model`` does.
-Serving only: ``loss_fn`` and ``batch_spec`` wait with training (ROADMAP
-queue 1, item 14f).
+d).  ``loss_fn`` runs both LM kernels (their gradients are their plain
+versions'), where JAX's trains through its plain paths.  An unknown family
+raises ``ValueError``, as JAX's ``get_model`` does.  ``batch_spec``, which
+serves only the XLA dry-run, waits with the dry-run tools (ROADMAP queue 1,
+item 14g).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, griffin, rwkv6, transformer
@@ -30,17 +35,24 @@ from repro_torch.models import encdec, griffin, rwkv6, transformer
 class Model:
     cfg: ModelConfig
     init: Callable
+    loss_fn: Callable
     forward: Callable
     init_decode_cache: Callable
     decode_fn: Callable
+
+
+def _serving(fn: Callable) -> Callable:
+    """``fn`` under ``torch.inference_mode()``: a serving call builds no graph."""
+    return torch.inference_mode()(fn)
 
 
 def _transformer_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator=None, device=None: transformer.init_lm(cfg, generator, device),
-        forward=lambda params, batch: transformer.forward(
-            params, batch["tokens"], extra_embeds=batch.get("patch_embeds")),
+        loss_fn=transformer.loss_fn,
+        forward=_serving(lambda params, batch: transformer.forward(
+            params, batch["tokens"], extra_embeds=batch.get("patch_embeds"))),
         init_decode_cache=lambda b, m, device=None: transformer.init_decode_cache(
             cfg, b, m, device),
         decode_fn=transformer.decode_fn,
@@ -51,7 +63,8 @@ def _rwkv_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator=None, device=None: rwkv6.init_lm(cfg, generator, device),
-        forward=lambda params, batch: rwkv6.forward(params, batch["tokens"]),
+        loss_fn=rwkv6.loss_fn,
+        forward=_serving(lambda params, batch: rwkv6.forward(params, batch["tokens"])),
         init_decode_cache=lambda b, m, device=None: rwkv6.init_decode_cache(cfg, b, m, device),
         decode_fn=rwkv6.decode_fn,
     )
@@ -61,7 +74,8 @@ def _griffin_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator=None, device=None: griffin.init_lm(cfg, generator, device),
-        forward=lambda params, batch: griffin.forward(params, batch["tokens"]),
+        loss_fn=griffin.loss_fn,
+        forward=_serving(lambda params, batch: griffin.forward(params, batch["tokens"])),
         init_decode_cache=lambda b, m, device=None: griffin.init_decode_cache(cfg, b, m, device),
         decode_fn=griffin.decode_fn,
     )
@@ -71,8 +85,9 @@ def _encdec_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator=None, device=None: encdec.init_lm(cfg, generator, device),
-        forward=lambda params, batch: encdec.forward(
-            params, batch["tokens"], frames=batch["frames"]),
+        loss_fn=encdec.loss_fn,
+        forward=_serving(lambda params, batch: encdec.forward(
+            params, batch["tokens"], frames=batch["frames"])),
         init_decode_cache=lambda b, m, device=None: encdec.init_decode_cache(cfg, b, m, device),
         decode_fn=encdec.decode_fn,
     )

@@ -1,9 +1,11 @@
-"""RWKV6 "Finch" language model (attention-free, data-dependent decay), for
-serving.
+"""RWKV6 "Finch" language model (attention-free, data-dependent decay).
 
 The port of ``repro/models/rwkv6.py``: time-mix, channel-mix,
 ``block_apply`` with and without state, ``init_lm``, ``forward``,
-``init_decode_cache`` and ``decode_fn``.  The JAX rounding points are kept:
+``loss_fn``, ``init_decode_cache`` and ``decode_fn``.  ``forward`` builds a
+graph when grad mode is on, each block rematerialised (``layers.remat``) as
+JAX's ``jax.checkpoint`` does; serving calls it under
+``torch.inference_mode()``.  The JAX rounding points are kept:
 the token-shift mixes in x's dtype (``mu`` cast to it), r/k/v cast to f32
 before the recurrence, the decay ``exp(-exp(w))`` in f32, the per-head group
 norm in f32 with eps 64e-5, then cast back.  Heads are ``d_model // 64``, not
@@ -12,7 +14,9 @@ norm in f32 with eps 64e-5, then cast back.  Heads are ``d_model // 64``, not
 The multi-token time-mix (every ``forward``, and ``decode_fn`` given more
 than one token) runs ``wkv6_op`` with ``wkv_impl="kernel"`` by default, one
 ``wkv6`` launch per layer on the card, where the JAX package defaults to
-``"ref"`` (no JAX entry point ever selected its Pallas kernel).  A single
+``"ref"`` (no JAX entry point ever selected its Pallas kernel).  A training
+step launches it once more per layer in the recompute, and takes the
+gradient of its plain version (``kernels/wkv6/ops.py``).  A single
 token against a state takes ``wkv6_decode_step``, plain torch as in JAX.
 """
 
@@ -163,15 +167,19 @@ def block_apply(cfg, bp: Block, x, *, state=None, wkv_impl="kernel"):
     return x, {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}
 
 
-@torch.no_grad()
 def forward(model: RWKV6LM, tokens: torch.Tensor, *, wkv_impl: str = "kernel") -> torch.Tensor:
     """-> logits (B, S, vocab)."""
     cfg = model.cfg
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     for bp in model.blocks:
-        x, _ = block_apply(cfg, bp, x, wkv_impl=wkv_impl)
+        x = L.remat(lambda x, bp=bp: block_apply(cfg, bp, x, wkv_impl=wkv_impl)[0], x)
     x = L.rmsnorm(x, model.ln_f, cfg.norm_eps)
     return x @ model.unembed
+
+
+def loss_fn(model: RWKV6LM, batch: dict, *, wkv_impl: str = "kernel") -> torch.Tensor:
+    """The mean f32 cross-entropy of ``batch["labels"]``."""
+    return L.token_ce(forward(model, batch["tokens"], wkv_impl=wkv_impl), batch["labels"])
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -198,7 +206,7 @@ def decode_fn(model: RWKV6LM, cache: dict, tokens: torch.Tensor):
     returned; its ``len`` counts the tokens consumed (the JAX package adds
     one a call; nothing reads it)."""
     cfg = model.cfg
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     for i, bp in enumerate(model.blocks):
         state = {"wkv": cache["wkv"][i], "shift_t": cache["shift_t"][i],
                  "shift_c": cache["shift_c"][i]}

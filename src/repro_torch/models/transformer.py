@@ -1,17 +1,18 @@
-"""Decoder-only transformer LM (dense / MoE / VLM backbone), for serving.
+"""Decoder-only transformer LM (dense / MoE / VLM backbone).
 
 The port of ``repro/models/transformer.py``: ``init_lm``, ``forward``,
-``init_decode_cache`` and ``decode_fn``.  One ``Block`` per layer in an
-``nn.ModuleList`` takes the place of the stacked ``(L, ...)`` leaves and
-``lax.scan``; a block holds an ``MoE`` in place of its MLP when the config
-has experts.  ``forward`` prepends a VLM's patch embeddings
-(``extra_embeds``) and returns the summed MoE aux loss on request.  Serving
-only: there is no backward, so ``loss_fn`` and remat wait with training
-(ROADMAP queue 1, item 14f).
+``loss_fn``, ``init_decode_cache`` and ``decode_fn``.  One ``Block`` per
+layer in an ``nn.ModuleList`` takes the place of the stacked ``(L, ...)``
+leaves and ``lax.scan``; a block holds an ``MoE`` in place of its MLP when
+the config has experts.  ``forward`` prepends a VLM's patch embeddings
+(``extra_embeds``) and returns the summed MoE aux loss on request.  It
+builds a graph when grad mode is on, each block rematerialised
+(``layers.remat``) as JAX's ``jax.checkpoint`` does; serving calls it under
+``torch.inference_mode()``.
 
 ``forward`` runs the prefill attention through ``attention_op`` with
 ``attn_impl="kernel"`` by default, one ``flash_attention`` launch per layer
-on the card, where the JAX package defaults to ``"blockwise"`` (no JAX entry
+on the card (and one more per layer in a training step's recompute), where the JAX package defaults to ``"blockwise"`` (no JAX entry
 point ever selected its Pallas kernel).  Decode attends over the cache with
 the plain ``_cached_attention``, as the JAX package does, and sees tokens
 only: JAX's ``decode_fn`` takes no patch prefix.
@@ -77,7 +78,6 @@ def block_apply(cfg, bp: Block, x, positions, attn_impl="kernel", cache=None):
     return x + m, new_kv, aux
 
 
-@torch.no_grad()
 def forward(
     model: TransformerLM,
     tokens: torch.Tensor,  # (B, S) int
@@ -91,17 +91,35 @@ def forward(
     without experts).  The patch prefix is cast to the model's dtype and
     takes positions 0..P-1, the tokens P..P+S-1."""
     cfg = model.cfg
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
-    for bp in model.blocks:
+
+    def block(bp, x):
         x, _, layer_aux = block_apply(cfg, bp, x, positions, attn_impl)
+        return x, layer_aux
+
+    for bp in model.blocks:
+        x, layer_aux = L.remat(lambda x, bp=bp: block(bp, x), x)
         aux = aux + layer_aux
     x = L.rmsnorm(x, model.ln_f, cfg.norm_eps)
     logits = x @ model.unembed
     return (logits, aux) if return_aux else logits
+
+
+def loss_fn(model: TransformerLM, batch: dict, *, attn_impl: str = "kernel",
+            aux_coef: float = 0.01) -> torch.Tensor:
+    """batch = {'tokens': (B, S), 'labels': (B, S)[, 'patch_embeds']} ->
+    the scalar loss: the CE over the token positions (a VLM's patch prefix
+    is not scored) plus ``aux_coef`` times the MoE aux loss."""
+    logits, aux = forward(model, batch["tokens"], attn_impl=attn_impl,
+                          extra_embeds=batch.get("patch_embeds"), return_aux=True)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # VLM prefix: score the token tail only
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    return L.token_ce(logits, labels) + aux_coef * aux
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -117,7 +135,7 @@ def decode_fn(model: TransformerLM, cache: dict, tokens: torch.Tensor):
     same dict is returned.  ``len`` is a host int (the JAX package carries
     it as a traced scalar)."""
     cfg = model.cfg
-    x = model.embed[tokens].to(L.torch_dtype(cfg))
+    x = L.embed(model.embed, tokens).to(L.torch_dtype(cfg))
     pos = cache["len"]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     for i, bp in enumerate(model.blocks):

@@ -40,6 +40,14 @@ from repro_torch.launch.serve_lm import greedy_decode
 from repro_torch.models.convert import frames, load_jax_params, numpy_params
 from repro_torch.models.registry import get_model
 
+
+@pytest.fixture(autouse=True)
+def _serving_without_grad():
+    """Serving runs without autograd; the parameters require grad."""
+    with torch.no_grad():
+        yield
+
+
 pytestmark = pytest.mark.cuda
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

@@ -38,6 +38,14 @@ from repro_torch.models import encdec
 from repro_torch.models.convert import frames, load_jax_params, numpy_params, param_shapes
 from repro_torch.models.registry import get_model
 
+
+@pytest.fixture(autouse=True)
+def _serving_without_grad():
+    """Serving runs without autograd; the parameters require grad."""
+    with torch.no_grad():
+        yield
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARCH = "whisper_large_v3"
 B, S = 2, 12

@@ -3,19 +3,31 @@
 Each twin runs on the CPU here (``--device cpu``) and prints what the JAX
 example prints, line for line, less the lines that read the host's clock or
 the JAX plane cache's own counters: ``quickstart``'s part 1 (the JAX
-example's LM training, part 2, is stubbed out of it), ``solve_dimacs``'s §4
-table, transfer paths and batched plane, its ``--spill`` and ``--files``
-modes, and ``serve_solver``'s stream.
+example's LM training, part 2, is stubbed out of it; the twin's part 2
+trains from the port's own init, so its loss line is checked to show
+learning, not equality), ``solve_dimacs``'s §4 table, transfer paths and
+batched plane, its ``--spill`` and ``--files`` modes, and ``serve_solver``'s
+stream.  torch runs on one CPU thread here: the suite's workers would
+otherwise oversubscribe the cores.
 """
 
 import re
 import sys
 
 import pytest
+import torch
 
 from repro_torch.examples import quickstart, serve_solver, solve_dimacs
 
 _CLOCK = re.compile(r"\d+\.\d+s total \(\d+\.\d+ inst/s\)")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _lines(text: str) -> list:
@@ -33,6 +45,7 @@ def test_quickstart_part_1_equals_jax(capsys, monkeypatch):
     theirs = capsys.readouterr().out.splitlines()
     assert ours[:4] == theirs[:4]
     assert "mvc=28" in ours[3] and "verified=True" in ours[3]
+    assert ours[-1].startswith("loss ") and ours[-1].endswith("(OK)")  # part 2 learned
 
 
 @pytest.mark.parametrize("argv", [["30", "0.4"], ["--spill"]])

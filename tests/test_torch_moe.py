@@ -34,6 +34,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import counts
 from repro_torch.models import moe
 
+
+@pytest.fixture(autouse=True)
+def _serving_without_grad():
+    """Serving runs without autograd; the parameters require grad."""
+    with torch.no_grad():
+        yield
+
+
 D, F = 32, 16
 TOL = 1e-5
 MARGIN = 1e-4
