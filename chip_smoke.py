@@ -118,9 +118,10 @@ Phases (any failed check raises, so the exit code is not 0):
    a chunk a superstep (no capacity under its peak keeps the headroom), the
    unsaturated reference (best 304, its peak, C), the starved solve at C
    without spill
-   (it drops tasks) and the spilled one at C, twice: no drop, every spilled
-   task readmitted, best 304, the cover verifies, both runs identical,
-   counters included, one ``vc_expand`` per explore round; its wall against
+   (it drops tasks) and the spilled one at C, once (twice before PR 26; its
+   record, counters included, is held again by (c)'s lane 0 and phase 14):
+   no drop, every spilled task readmitted, best 304, the cover verifies,
+   one ``vc_expand`` per explore round; its wall against
    the unsaturated one, its pumps, their time and the bytes they move each
    way; (b) max clique on ``p_hat_like(300, 0.325, seed 0)`` spilled: phase
    4's optimum, no drop, one ``clique_expand`` per explore round; (c)
@@ -175,8 +176,12 @@ Phases (any failed check raises, so the exit code is not 0):
    per explore round), and ``clique_smoke`` with ``encoding_bytes`` held
    to the exact pins of ``benchmarks/baseline.json``; (d) the example
    twins ``repro_torch.examples.quickstart``, ``solve_dimacs`` and
-   ``serve_solver`` as programs on the card, started together: each exits
-   0.  Each simulator's host wall and each SPMD wall is printed; the
+   ``serve_solver`` as programs on the card, started together at the
+   phase's start, beside (a)-(c): each exits 0.  (a)'s five other n = 300
+   runs are processes of their own, run together beside (b); they have
+   ended before (c) starts.  Each simulator's host wall and each SPMD wall
+   is printed, every reading taken while other processes run labelled
+   contended; the
    kernels line gives (b)'s and (c)'s launches as ``protocol_launches``;
 16. the reference explore path, elasticity, the legacy shims and the
    benchmark mirrors (run after phase 15) — (a) every solo, FPT and
@@ -197,7 +202,10 @@ Phases (any failed check raises, so the exit code is not 0):
    ``engine.solve``/``solve_many`` equal their session results, each with
    its ``DeprecationWarning``; (d) the benchmark mirrors
    ``repro_torch.bench``: the namesake's smoke set, ``resume_smoke`` (real
-   SIGKILLs of child processes on the card) and ``engine_throughput``, held
+   SIGKILLs of child processes on the card, in a process of its own started
+   at the phase's start, beside (a)-(c), and ended before the other
+   mirrors start; the readings it shares the host with are labelled
+   contended) and ``engine_throughput``, held
    by ``check_regression`` to every benchmark and exact pin of
    ``benchmarks/baseline.json``, each mirror's ratios printed beside the
    namesake's bar (recorded, not gated), and ``kernel_bench``'s kernel times
@@ -210,7 +218,7 @@ Phases (any failed check raises, so the exit code is not 0):
    solo and FPT golden of ``tests/golden_vc.json`` on its P ranks, equal to
    the golden and to the single-process solve (``reduce_sweeps`` too); (b)
    the paper's width, G(600, 4/599, seed 0) (W = 19), on 4 ranks capped at
-   32 supersteps of 32 explore rounds, equal field for field to the
+   16 supersteps of 32 explore rounds (32 before PR 26), equal field for field to the
    single-process 4-worker solve with the same cap, run again with the
    collectives timed (a device sync around each); (c) max clique on
    ``p_hat_like(300, 0.325, 0)`` on 4 ranks capped the same way; (d) a
@@ -222,7 +230,8 @@ Phases (any failed check raises, so the exit code is not 0):
    ``launch.solve --use-mesh`` (its own 4 ranks) printing the
    single-process command's ``[solve]`` lines.  Each rank launches exactly
    one expansion kernel per explore round and nothing else; both walls per
-   superstep and the collectives' ms per superstep are printed.  The
+   superstep and the collectives' ms per superstep are printed.  The 4-rank
+   job also runs phase 21's solver twin (one start of the ranks less).  The
    kernels line gives every rank's launches, summed, as ``mesh_launches``;
 18. MoE and VLM serving (run after phase 10) — (a) ``golden_lm.json``'s
    qwen3-moe, llama4-scout and pixtral entries (JAX-made, f32 smoke configs,
@@ -304,6 +313,30 @@ Phases (any failed check raises, so the exit code is not 0):
    shapes (and SDPA's backward at qwen's, which the port never calls).  The
    kernels line gives the paths' launches as ``train_launches`` and the
    timings as ``train_shape``.
+21. the dry run (run after phase 20) — (a) ``repro_torch.launch.dryrun``'s
+   count of phase 20's qwen1.5-0.5b training step (8 x 1,024) on meta
+   tensors (host counts: FLOPs, bytes, arguments, a peak estimate) beside
+   one such step on the card: ``max_memory_allocated`` within 1.5x of the
+   estimate either way, and the step's model FLOPs over 989 TFLOP/s divided
+   by its wall (the roofline share); (b) ``launch.dryrun_solver``'s four
+   control planes, one superstep each at the paper's width (n 600) on 4
+   gloo ranks sharing the card (run in phase 17's 4-rank job; ``vc_expand``
+   explores), every rank's
+   collective bytes and counts equal to the dry stand-in of the same mesh,
+   and the stand-in of JAX's default (n 1024, 512 workers), both stand-ins
+   exploring on the card.  The kernels
+   line gives (b)'s launches as ``dryrun_launches``;
+22. expert parallelism (run after phase 21) — qwen3-moe-235b-a22b at full
+   width cut to 4 of 94 layers, bf16, cf = E/K (no assignment drops),
+   served by ``moe_apply_ep`` on 4 gloo ranks sharing the card (32 experts
+   a layer each) and on a 1-rank NCCL group: a prefill of 4 x 1,024 tokens
+   (one tensor-core ``flash_attention`` launch a layer a rank), its tok/s and
+   the collectives' ms a layer (a device sync around each); each MoE layer
+   fed the one-process route's input against that route (bf16, within (2K +
+   M) bf16 half-steps), one layer in f32 against the one-process route
+   within 1e-5, output and aux loss; the last logits' gap printed.  The
+   kernels line gives the launches, summed over the ranks, as
+   ``ep_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -319,6 +352,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -1641,7 +1675,8 @@ def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
 
     # (a) the paper's size, solo: phase 7's shape a chunk a superstep has no
     # room either; the spilled shape's unsaturated reference, the starved
-    # solve and the spilled one, twice
+    # solve and the spilled one (once: its record is held again by (c)'s lane
+    # 0 and by phase 14's faulted run)
     g = erdos_renyi(**PAPER_GRAPH)
     base = dict(num_workers=PAPER_WORKERS, max_rounds=max_rounds)
     _reference("paper size", "vertex_cover", g, {**base, "chunk_rounds": 1}, dev,
@@ -1655,27 +1690,23 @@ def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
     check(starved.stats.overflow_count > 0,
           f"paper size starved at C={C}: no task dropped (peak {peak})")
     spilled_cfg = cfg.replace(frontier_spill=True)
-    runs = []
-    for i in range(2):
-        r, rec, wall, m, launches = _spilled(f"paper size run {i}", "vertex_cover", g,
-                                             spilled_cfg, dev, "vc_expand")
-        check(rec["best_size"] == paper["best_size"] and verify_cover(g, r.best_sol),
-              f"paper size spilled run {i}: best {rec['best_size']} (want "
-              f"{paper['best_size']}) or its cover does not verify")
-        if i == 0:
-            out["vc_expand"] += launches["vc_expand"]
-            out["paper"] = {"cfg": spilled_cfg, "record": rec, "wall": wall,
-                            "reduce_sweeps": r.stats.reduce_sweeps}
-        runs.append(rec)
-        print(f"[smoke] spill paper size run {i}: C={C}: best={rec['best_size']} rounds="
-              f"{rec['rounds']} nodes={rec['nodes_expanded']} spilled={rec['spilled_tasks']} "
-              f"readmitted={rec['readmitted_tasks']} cold_peak={rec['cold_bytes_peak']}B "
-              f"overflow=0; wall {wall:.3f} s = {wall / wall_unsat:.3f}x the unsaturated "
-              f"{wall_unsat:.3f} s; {_meter_line(m)}; launches={launches}")
-    check(runs[0] == runs[1], f"paper size spilled runs differ: {runs[0]} vs {runs[1]}")
+    r, paper_rec, wall, m, launches = _spilled("paper size run", "vertex_cover", g,
+                                         spilled_cfg, dev, "vc_expand")
+    check(paper_rec["best_size"] == paper["best_size"] and verify_cover(g, r.best_sol),
+          f"paper size spilled run: best {paper_rec['best_size']} (want "
+          f"{paper['best_size']}) or its cover does not verify")
+    out["vc_expand"] += launches["vc_expand"]
+    out["paper"] = {"cfg": spilled_cfg, "record": paper_rec, "wall": wall,
+                    "reduce_sweeps": r.stats.reduce_sweeps}
+    print(f"[smoke] spill paper size run: C={C}: best={paper_rec['best_size']} rounds="
+          f"{paper_rec['rounds']} nodes={paper_rec['nodes_expanded']} "
+          f"spilled={paper_rec['spilled_tasks']} readmitted={paper_rec['readmitted_tasks']} "
+          f"cold_peak={paper_rec['cold_bytes_peak']}B "
+          f"overflow=0; wall {wall:.3f} s = {wall / wall_unsat:.3f}x the unsaturated "
+          f"{wall_unsat:.3f} s; {_meter_line(m)}; launches={launches}")
     print(f"[smoke] spill paper size: starved at C={C} dropped "
           f"{starved.stats.overflow_count} tasks (best {starved.best_size}); spilled at the "
-          f"same C dropped none, twice identical")
+          f"same C dropped none")
 
     # (b) max clique, spilled
     golden = json.loads(
@@ -1714,7 +1745,7 @@ def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
     check(batch.compactions == 0 and launches == {"vc_expand": ran * cfg.steps_per_round},
           f"spilled batch: {launches} in {ran} plane supersteps")
     out["vc_expand"] += launches["vc_expand"]
-    check(recs[0] == runs[0], f"spilled batch seed 0: {recs[0]} != its solo {runs[0]}")
+    check(recs[0] == paper_rec, f"spilled batch seed 0: {recs[0]} != its solo {paper_rec}")
     check(recs[1]["overflow_count"] == 0 and recs[1]["spilled_tasks"] > 0
           and verify_cover(g1, batch.results[1].best_sol),
           f"spilled batch seed 1: {recs[1]}")
@@ -1746,12 +1777,12 @@ def phase_spill(dev, paper: dict, paper_peak: int, max_rounds: int) -> dict:
         d = os.path.join(root, "paper")
         r = SolverSession(config=spilled_cfg.replace(checkpoint_every=16), device=dev).solve(
             g, checkpoint_dir=d)
-        check(spill_record(r) == runs[0], "durable spilled solve differs from (a)'s")
+        check(spill_record(r) == paper_rec, "durable spilled solve differs from (a)'s")
         cold = [(p, _cold_rows(SolveCheckpoint.load(str(p)).arrays)) for p in _step_dirs(d)]
         held = [p for p, n in cold if n]
         check(held, f"no checkpoint of the spilled solve holds a cold record: {cold}")
         step_dir = held[len(held) // 2]
-        launches, _ = _resume_checked("spilled paper size", step_dir, [runs[0]], "vc_expand",
+        launches, _ = _resume_checked("spilled paper size", step_dir, [paper_rec], "vc_expand",
                                       dev, extra=_spill_extra)
         out["vc_expand"] += launches["vc_expand"]
         sizes = [_dir_bytes(p) for p, _ in cold]
@@ -2144,6 +2175,14 @@ def _faults_clique(dev) -> int:
 # the example twins phase 15 runs as programs, all started together
 EXAMPLE_TWINS = ("quickstart", "solve_dimacs", "serve_solver")
 EXAMPLE_TIMEOUT_S = 600
+# the n = 300 simulator goldens run one process each, beside the SPMD solve
+SIM_PROCESSES = 5
+# the label of a reading taken while other processes share the host and the
+# card: not comparable with one taken alone
+BESIDE_EXAMPLES = "contended: the 3 example twins' processes run beside it"
+BESIDE_SIMS = (f"contended: {SIM_PROCESSES} simulator processes and the 3 example twins run "
+               "beside it")
+BESIDE_RESUME = "contended: resume_smoke's process runs beside it"
 
 
 def _sim_dict(r) -> dict:
@@ -2152,33 +2191,61 @@ def _sim_dict(r) -> dict:
     return d
 
 
-def _protocol_goldens(dev, golden: dict) -> None:
-    """(a) Every case of ``golden_sim.json`` through ``SolverSession`` with
-    the card as its device: equal to the JAX record field for field."""
+def _sim_case(case: dict, dev: str) -> tuple:
+    """One case of ``golden_sim.json`` through ``SolverSession`` (a pool
+    worker's job): (its record, its host wall, its stats' readings)."""
     from repro_torch.api import SolveConfig, SolverSession
 
-    clique_walls = {}
-    for case in golden["cases"]:
-        g = _build_graph(case["graph"])
-        session = SolverSession(problem=case["problem"], backend=case["backend"],
-                                config=SolveConfig(**case["solve_kw"]), device=dev)
-        t = time.perf_counter()
-        r = session.solve(g)
-        wall = time.perf_counter() - t
-        got = _sim_dict(r)
+    g = _build_graph(case["graph"])
+    session = SolverSession(problem=case["problem"], backend=case["backend"],
+                            config=SolveConfig(**case["solve_kw"]), device=dev)
+    t = time.perf_counter()
+    r = session.solve(g)
+    wall = time.perf_counter() - t
+    s = r.stats
+    return _sim_dict(r), wall, dict(best=r.best_size, ticks=s.ticks, nodes=r.nodes_expanded,
+                                    transfers=r.tasks_transferred, failed=s.failed_requests,
+                                    total=s.total_bytes, center=s.center_bytes)
+
+
+def _is_profiled(case: dict) -> bool:
+    return (case["problem"] == "vertex_cover" and case["backend"] == "protocol_sim"
+            and case["solve_kw"] == {"num_workers": PAPER_WORKERS, "codec": "optimized"})
+
+
+def _start_sims(pool, dev, golden: dict) -> list:
+    """(a) The n = 300 cases of ``golden_sim.json`` (the host simulators, one
+    process each, beside the rest of the phase), but the one the profile
+    runs: -> [(case, future)]."""
+    return [(c, pool.submit(_sim_case, c, str(dev))) for c in golden["cases"]
+            if c["problem"] == "vertex_cover" and not _is_profiled(c)]
+
+
+def _protocol_goldens(dev, golden: dict, started: list) -> None:
+    """(a) Every case of ``golden_sim.json`` through ``SolverSession`` with
+    the card as its device: equal to the JAX record field for field (the
+    n = 300 ones from their processes; the profiled one in
+    ``_protocol_profile``)."""
+    for case, fut in started:
+        got, wall, s = fut.result(timeout=EXAMPLE_TIMEOUT_S)
         label = f"{case['problem']} {case['backend']} {case['solve_kw']} {case['graph']}"
         check(got == case["result"], f"protocol golden {label}: {got} != the JAX record")
+        print(f"[smoke] protocol {case['backend']} G(300, 4/299, 0) {case['solve_kw']}: "
+              f"== JAX golden, best {s['best']}, {s['ticks']} ticks, {s['nodes']} "
+              f"nodes, {s['transfers']} transfers, {s['failed']} failed, "
+              f"{s['total']} bytes ({s['center']} through the center), "
+              f"host wall {wall:.3f} s (one of {len(started)} processes run together; "
+              f"{BESIDE_EXAMPLES})")
+    clique_walls = {}
+    for case in golden["cases"]:
         if case["problem"] == "vertex_cover":
-            s = r.stats
-            print(f"[smoke] protocol {case['backend']} G(300, 4/299, 0) {case['solve_kw']}: "
-                  f"== JAX golden, best {r.best_size}, {s.ticks} ticks, {r.nodes_expanded} "
-                  f"nodes, {r.tasks_transferred} transfers, {s.failed_requests} failed, "
-                  f"{s.total_bytes} bytes ({s.center_bytes} through the center), "
-                  f"host wall {wall:.3f} s")
-        else:
-            clique_walls.setdefault(case["backend"], []).append(round(wall, 4))
+            continue
+        got, wall, _ = _sim_case(case, str(dev))
+        label = f"{case['problem']} {case['backend']} {case['solve_kw']} {case['graph']}"
+        check(got == case["result"], f"protocol golden {label}: {got} != the JAX record")
+        clique_walls.setdefault(case["backend"], []).append(round(wall, 4))
     print(f"[smoke] protocol max clique G(20, 0.4, seeds 0-3), 8 workers: both simulators "
-          f"== JAX golden; host walls {clique_walls} s")
+          f"== JAX golden; host walls {clique_walls} s ({BESIDE_EXAMPLES})")
 
 
 # where a simulator run's host time goes: each part is the time under the
@@ -2202,9 +2269,7 @@ def _protocol_profile(dev, golden: dict) -> None:
 
     from repro_torch.api import SolveConfig, SolverSession
 
-    case = next(c for c in golden["cases"] if c["problem"] == "vertex_cover"
-                and c["backend"] == "protocol_sim"
-                and c["solve_kw"] == {"num_workers": PAPER_WORKERS, "codec": "optimized"})
+    case = next(c for c in golden["cases"] if _is_profiled(c))
     g = _build_graph(case["graph"])
     session = SolverSession(backend="protocol_sim", config=SolveConfig(**case["solve_kw"]),
                             device=dev)
@@ -2226,7 +2291,8 @@ def _protocol_profile(dev, golden: dict) -> None:
     parts["the loop's own"] = total - sum(parts.values())
     split = ", ".join(f"{name} {t:.3f} s ({t / total:.1%})" for name, t in parts.items())
     print(f"[smoke] protocol profile: protocol_sim G(300, 4/299, 0) {case['solve_kw']} under "
-          f"cProfile == JAX golden; run_protocol_sim {total:.3f} s of host time: {split}")
+          f"cProfile == JAX golden; run_protocol_sim {total:.3f} s of host time ({BESIDE_EXAMPLES}): "
+          f"{split}")
 
 
 def _protocol_spmd(dev, golden: dict) -> dict:
@@ -2251,8 +2317,8 @@ def _protocol_spmd(dev, golden: dict) -> dict:
     _per_round("SPMD on G(300)", launches, "vc_expand", cfg.steps_per_round, r.rounds)
     print(f"[smoke] protocol SPMD G(300, 4/299, 0), {PAPER_WORKERS} workers: best "
           f"{r.best_size} == the sequential optimum, verified; {r.rounds} supersteps, "
-          f"{r.nodes_expanded} nodes, {r.tasks_transferred} transfers, wall {wall:.3f} s; "
-          f"launches={launches}")
+          f"{r.nodes_expanded} nodes, {r.tasks_transferred} transfers, wall {wall:.3f} s "
+          f"({BESIDE_SIMS}); launches={launches}")
     return launches
 
 
@@ -2284,7 +2350,8 @@ def _protocol_bench(dev) -> dict:
                   f"{r['semi_failed']} failed")
     print(f"[smoke] speedup: 14 simulator rows at the sequential optimum; "
           f"donation rows {[(r['workers'], r['donate_k'], r['rounds'], r['tasks_moved']) for r in donation]} "
-          f"on the card; wall {wall:.3f} s (simulators on the host); launches={launches}")
+          f"on the card; wall {wall:.3f} s (simulators on the host; {BESIDE_EXAMPLES}); "
+          f"launches={launches}")
     counts.reset()
     clique = clique_smoke.run(smoke=True, device=dev)
     clique_launches = counts.snapshot()
@@ -2299,28 +2366,39 @@ def _protocol_bench(dev) -> dict:
             for k in ("vc_expand", "clique_expand")}
 
 
-def _protocol_examples(dev) -> None:
-    """(d) The example twins as programs, all started together: each exits 0."""
+def _start_examples(dev) -> tuple:
+    """(d) The example twins as programs, all started together (they run
+    beside the rest of the phase): -> (the processes, their start)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
-    t = time.perf_counter()
+    for name in EXAMPLE_TWINS:
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.examples.{name}", "--device", str(dev)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs, time.perf_counter()
+
+
+def _kill(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _finish_examples(started: tuple) -> None:
+    """Each example twin exits 0."""
+    procs, t = started
     try:
-        for name in EXAMPLE_TWINS:
-            procs[name] = subprocess.Popen(
-                [sys.executable, "-m", f"repro_torch.examples.{name}", "--device", str(dev)],
-                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, proc in procs.items():
             out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
             check(proc.returncode == 0,
                   f"example twin {name} exited {proc.returncode}:\n{out[-4000:]}")
             tail = out.strip().splitlines()[-1] if out.strip() else ""
-            print(f"[smoke] example twin {name}: exit 0 at {time.perf_counter() - t:.3f} s; "
+            print(f"[smoke] example twin {name}: exit 0 at {time.perf_counter() - t:.3f} s "
+                  f"(the 3 run together beside the phase); "
                   f"last line: {tail}")
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        _kill(procs.values())
 
 
 def phase_protocol(dev) -> dict:
@@ -2328,13 +2406,26 @@ def phase_protocol(dev) -> dict:
     ``centralized`` through ``SolverSession(device=dev)`` equal to the
     JAX-made ``golden_sim.json``; (b) the SPMD engine on its G(300) at 128
     workers; (c) the benchmark mirrors; (d) the example twins as programs.
-    Returns the launches of (b) and (c)."""
+    The twins run beside the whole phase and the simulators' processes
+    beside (b), so those readings are labelled contended; the pool has ended
+    before (c) times anything.  Returns the launches of (b) and (c)."""
+    from concurrent.futures import ProcessPoolExecutor
+
     golden = json.loads((DATA / "golden_sim.json").read_text())
-    _protocol_goldens(dev, golden)
-    _protocol_profile(dev, golden)
-    spmd = _protocol_spmd(dev, golden)
-    bench = _protocol_bench(dev)
-    _protocol_examples(dev)
+    examples = _start_examples(dev)
+    try:
+        # before the pool: its threads would skew cProfile's split
+        _protocol_profile(dev, golden)
+        with ProcessPoolExecutor(max_workers=SIM_PROCESSES,
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            sims = _start_sims(pool, dev, golden)
+            spmd = _protocol_spmd(dev, golden)
+            _protocol_goldens(dev, golden, sims)
+        bench = _protocol_bench(dev)
+    except BaseException:
+        _kill(examples[0].values())
+        raise
+    _finish_examples(examples)
     return {k: spmd.get(k, 0) + bench[k] for k in ("vc_expand", "clique_expand")}
 
 
@@ -2348,7 +2439,11 @@ ELASTIC_WORKERS = (48, 128)
 # the mirrors phase 16 runs on the card: the namesake's smoke set (every
 # benchmark of benchmarks/baseline.json), the SIGKILL cycles, the engine A/B
 # and the kernels' times at the namesake's roofline shapes
-PHASE16_MIRRORS = ("resume_smoke", "engine_throughput")
+PHASE16_MIRRORS = ("engine_throughput",)
+# resume_smoke's SIGKILL cycles are child processes: they run in a process
+# of their own beside the rest of phase 16
+RESUME_SMOKE = ("import json; from repro_torch.bench import resume_smoke; "
+                "print('RESULT ' + json.dumps(resume_smoke.run(smoke=True, device={dev!r})))")
 
 
 def _vc_cases() -> list:
@@ -2420,7 +2515,8 @@ def _reference_vc(dev) -> dict:
               f"launches={launches} ({launches.get('batched_degrees', 0) / rounds:.2f} "
               f"batched_degrees per explore round); wall {ref_wall:.3f} s, "
               f"{ref.nodes_expanded / ref_wall:.1f} nodes/s against fused {fused_wall:.3f} s, "
-              f"{fused.nodes_expanded / fused_wall:.1f} nodes/s ({ref_wall / fused_wall:.2f}x)")
+              f"{fused.nodes_expanded / fused_wall:.1f} nodes/s ({ref_wall / fused_wall:.2f}x; "
+              f"{BESIDE_RESUME})")
     golden = json.loads((ROOT / "tests" / "golden_vc.json").read_text())["many"]
     graphs = [erdos_renyi(n, golden["p"], golden["seed0"] + i)
               for i, n in enumerate(golden["sizes"])]
@@ -2474,7 +2570,7 @@ def _reference_clique(dev) -> dict:
           == [_full(r) for r in batches["fused"].results],
           f"reference clique_smoke {sizes} differs from the fused route or [4, 6, 4, 4]")
     print(f"[smoke] reference clique_smoke: sizes {sizes} == fused; launches={launches}; "
-          f"wall {ref_wall:.3f} s against fused {fused_wall:.3f} s")
+          f"wall {ref_wall:.3f} s against fused {fused_wall:.3f} s ({BESIDE_RESUME})")
     cases = [(erdos_renyi(16, 0.4, s), dict(num_workers=4, steps_per_round=8)) for s in (0, 1, 2)]
     cases.append((erdos_renyi(16, 0.45, 11), dict(num_workers=4, mode="fpt", k=3)))
     for problem in ("max_clique", "mis"):
@@ -2561,7 +2657,8 @@ def _elastic(dev) -> int:
         print(f"[smoke] elastic: {ELASTIC_SUPERSTEPS} supersteps at {cfg.num_workers} workers, "
               f"snapshot ({pending} pending) -> restore -> resize to {workers}: best "
               f"{r.best_size} (golden {smoke['result']['best_size']}), verified, {r.rounds} "
-              f"supersteps, {r.nodes_expanded} nodes, {wall:.3f} s; launches={launches}")
+              f"supersteps, {r.nodes_expanded} nodes, {wall:.3f} s ({BESIDE_RESUME}); "
+              f"launches={launches}")
     return total
 
 
@@ -2600,12 +2697,36 @@ def _legacy(dev) -> None:
           f"DeprecationWarning")
 
 
-def _mirrors(dev) -> dict:
+def _start_resume_smoke(dev) -> tuple:
+    """The SIGKILL cycles of ``resume_smoke`` in a process of their own:
+    -> (the process, its start)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-c", RESUME_SMOKE.format(dev=str(dev))],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter()
+
+
+def _finish_resume_smoke(started: tuple) -> dict:
+    """``resume_smoke``'s record, as ``run_all`` records it."""
+    proc, t = started
+    try:
+        out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    finally:
+        _kill([proc])
+    check(proc.returncode == 0, f"resume_smoke exited {proc.returncode}:\n{out[-4000:]}")
+    line = next(ln for ln in reversed(out.splitlines()) if ln.startswith("RESULT "))
+    rec = dict(json.loads(line[len("RESULT "):]), elapsed_s=round(time.perf_counter() - t, 1))
+    rec.setdefault("problem", "vertex_cover")
+    return rec
+
+
+def _mirrors(dev, resumed: dict) -> dict:
     """(d) The benchmark mirrors on the card: the namesake's smoke set and
-    the SIGKILL cycles, gated by check_regression against
-    benchmarks/baseline.json; the engine A/B; the kernels at the namesake's
-    roofline shapes.  Returns the panel kernels' launches (the explore A/B's
-    reference route)."""
+    the SIGKILL cycles (``resumed``: their record, run beside (a)-(c)), gated by
+    check_regression against benchmarks/baseline.json; the engine A/B; the
+    kernels at the namesake's roofline shapes.  Returns the panel kernels'
+    launches (the explore A/B's reference route)."""
     from repro_torch.bench import check_regression, kernel_bench
     from repro_torch.bench.run import OUT, SMOKE_DEFAULT, run_all
     from repro_torch.kernels import counts
@@ -2613,6 +2734,7 @@ def _mirrors(dev) -> dict:
     counts.reset()
     recorded = run_all(list(SMOKE_DEFAULT) + list(PHASE16_MIRRORS), smoke=True, device=dev)
     launches = counts.snapshot()
+    recorded["resume_smoke"] = resumed
     run = {"smoke": True, "device": str(dev), "benchmarks": recorded}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(run, indent=2) + "\n")
@@ -2652,7 +2774,8 @@ def _mirrors(dev) -> dict:
           f"{rs['recovery_second_kill_step']} (mid-recovery {rs['killed_mid_recovery']}), "
           f"mid-spill at {rs['spill_killed_at_step']}: every resume bit-identical; checkpoint "
           f"{rs['checkpoint_bytes']} B, overhead {rs['checkpoint_overhead_pct']}%, resume "
-          f"{rs['resume_wall_s']} s")
+          f"{rs['resume_wall_s']} s, {rs['elapsed_s']} s in all (contended: run beside the "
+          f"reference route, elasticity and the legacy shims)")
     for row in recorded["engine_throughput"]["chunked"]:
         print(f"[smoke]   engine_throughput {row['mode']}: {row['host_steps_per_s']} supersteps/s "
               f"at chunk_rounds=1, {row['device_steps_per_s']} at {row['chunk_rounds']} "
@@ -2665,15 +2788,22 @@ def _mirrors(dev) -> dict:
 
 def phase_reference(dev) -> dict:
     """Phase 16: (a) the reference explore path, (b) elasticity, (c) the
-    legacy shims, (d) the benchmark mirrors.  Returns the launches of (a)'s
-    panel kernels and (b)'s vc_expand."""
-    panels = _reference_vc(dev)
-    for k, v in _reference_clique(dev).items():
-        panels[k] = panels.get(k, 0) + v
-    print(f"[smoke] reference explore path: panel launches {panels}, no fused kernel")
-    elastic = _elastic(dev)
-    _legacy(dev)
-    _mirrors(dev)
+    legacy shims, (d) the benchmark mirrors.  ``resume_smoke`` runs in its
+    own process beside (a)-(c) and has ended before (d) times anything, so
+    the readings of (a)-(c) and its own are labelled contended.  Returns the
+    launches of (a)'s panel kernels and (b)'s vc_expand."""
+    resume = _start_resume_smoke(dev)
+    try:
+        panels = _reference_vc(dev)
+        for k, v in _reference_clique(dev).items():
+            panels[k] = panels.get(k, 0) + v
+        print(f"[smoke] reference explore path: panel launches {panels}, no fused kernel")
+        elastic = _elastic(dev)
+        _legacy(dev)
+    except BaseException:
+        _kill([resume[0]])
+        raise
+    _mirrors(dev, _finish_resume_smoke(resume))
     return {"panels": panels, "vc_expand": elastic}
 
 
@@ -2684,7 +2814,7 @@ def phase_reference(dev) -> dict:
 # MESH_CAP supersteps of 32 explore rounds; golden_smoke.json's graph for the
 # 1-rank NCCL mesh and the mesh checkpoint
 MESH_RANKS = 4
-MESH_CAP = 32
+MESH_CAP = 16
 MESH_TIMEOUT_S = 300.0
 MESH_DURABLE = dict(num_workers=MESH_RANKS, steps_per_round=8, chunk_rounds=4, max_rounds=16)
 MESH_RESUME_STEP = 8
@@ -2710,6 +2840,9 @@ def _mesh_rank(mesh, cases: list, ckpt_dir: str) -> dict:
 
     out = {}
     for label, problem, graph, kw, timing in cases:
+        if problem is None:  # phase 21's solver twin: this job spares a start of 4 ranks
+            out[label] = _dryrun_solver_rank(mesh, kw["n"])
+            continue
         if label == "durable":
             kw = dict(kw, checkpoint_dir=ckpt_dir, checkpoint_every=1)
         g = _build_graph(graph)
@@ -2779,7 +2912,8 @@ def _vc(graph: dict) -> dict:
 
 def phase_mesh(dev) -> dict:
     """Phase 17: the solve one worker a rank of a torch.distributed group on
-    the card.  Returns every rank's mesh launches summed by kernel."""
+    the card.  Returns every rank's mesh launches summed by kernel, and the
+    4-rank job's share of phase 21 (the solver twin), rank by rank."""
     from repro_torch.api import SolveConfig
 
     golden = json.loads((ROOT / "tests" / "golden_vc.json").read_text())
@@ -2803,6 +2937,7 @@ def phase_mesh(dev) -> dict:
         ("paper_timed", "vertex_cover", paper, paper_kw, True),
         ("clique", "max_clique", clique, paper_kw, False),
         ("durable", "vertex_cover", smoke_g, MESH_DURABLE, False),
+        ("dryrun_solver", None, None, {"n": DRYRUN_SOLVER["n"]}, False),
     ]
     cases5 = [(label, "vertex_cover", g, kw, False) for label, (g, kw, _) in goldens.items()
               if kw["num_workers"] == 5]
@@ -2817,6 +2952,10 @@ def phase_mesh(dev) -> dict:
         mesh_ck = os.path.join(tmp, "mesh")
         single_ck = os.path.join(tmp, "single")
         ranks4, launches, walls[4] = _mesh_job(MESH_RANKS, cases4, mesh_ck)
+        dryrun_ranks = [rank.pop("dryrun_solver") for rank in ranks4]
+        for rank in dryrun_ranks:  # phase 21's, not the solves'
+            for k, v in rank["launches"].items():
+                launches[k] -= v
         ranks5, launches5, walls[5] = _mesh_job(5, cases5)
         ranks1, launches1, walls[1] = _mesh_job(1, cases1)
         for part in (launches, launches5, launches1):
@@ -2932,7 +3071,7 @@ def phase_mesh(dev) -> dict:
         check(len(lines[0]) == 2 and lines[0] == lines[1],
               f"launch.solve --use-mesh printed {lines[1]}, without the mesh {lines[0]}")
         print(f"[smoke] launch.solve --use-mesh on the card: {lines[1][1]}")
-    return total
+    return total, dryrun_ranks
 
 
 # -- the LM serving path (phases 8-10) ------------------------------------------
@@ -3721,8 +3860,8 @@ def _routing_log():
     log = []
     route = moe.route
 
-    def watched(cfg, p, x):
-        r = route(cfg, p, x)
+    def watched(cfg, p, x, **kw):
+        r = route(cfg, p, x, **kw)
         kept = torch.where(moe.keep_by_token(r), r["top_e"], cfg.n_experts)
         log.append(dict(top=r["top_e"].sort(-1).values, kept=kept.sort(-1).values,
                         dropped=(~r["keep"]).sum(), assignments=r["keep"].numel()))
@@ -4564,6 +4703,317 @@ def phase_train(dev) -> dict:
     return {"golden": golden, "qwen": qwen, "rwkv": rwkv, "backward": backward}
 
 
+# -- phase 21: the dry run beside the card ---------------------------------------
+
+# the LM dry run at phase 20's qwen1.5-0.5b training shape; the solver twin at
+# the paper's width (G(600, 4/599, 0)) on 4 ranks; the dry stand-in of JAX's
+# default mesh (n 1024, 512 workers)
+DRYRUN_LM = dict(arch="qwen1.5-0.5b", batch=8, seq=1024, seed=0)
+DRYRUN_SOLVER = dict(n=600, ranks=4)
+DRYRUN_DEFAULT = dict(n=1024, workers=512)
+
+
+def _dryrun_solver_rank(mesh, n: int) -> dict:
+    """A rank's share of phase 21's solver twin, run in phase 17's 4-rank
+    job: the four control planes' collectives on the real group (gloo on
+    the card), with this rank's launches."""
+    from repro_torch.kernels import counts
+    from repro_torch.launch import dryrun_solver
+
+    counts.reset()
+    rows = dryrun_solver.count_variants(mesh, n)
+    return {"result": rows, "launches": counts.snapshot()}
+
+
+def phase_dryrun(dev, solver_ranks: list) -> dict:
+    """Phase 21: (a) the LM dry run of phase 20's qwen1.5-0.5b training step
+    (host counts on meta tensors) beside one such step on the card: its
+    ``max_memory_allocated`` against the dry run's peak estimate and
+    arguments, its wall against the model FLOPs' time at 989 TFLOP/s (the
+    roofline share); (b) the solver twin on 4 gloo ranks sharing the card at
+    the paper's width (``solver_ranks``: run in phase 17's 4-rank job), equal
+    to the dry stand-in of the same mesh, and the stand-in of JAX's default
+    (n 1024, 512 workers).  Returns the readings."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import counts
+    from repro_torch.launch import analysis, dryrun, dryrun_solver
+    from repro_torch.launch.train import train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init
+
+    r = DRYRUN_LM
+    cfg = get_config(r["arch"])
+    shape = ShapeConfig("phase20_train", r["seq"], r["batch"], "train")
+    t = time.perf_counter()
+    dry = dryrun.run_cell(r["arch"], shape)
+    dry_s = time.perf_counter() - t
+    check(dry["status"] == "OK" and dry["memory"]["fits"], f"dry run of {cfg.name}: {dry}")
+
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(r["seed"]), dev)
+    opt = adamw_init(dict(params.named_parameters()))
+    g = torch.Generator(device=dev).manual_seed(r["seed"])
+    tokens = torch.randint(0, cfg.vocab, (r["batch"], r["seq"] + 1), generator=g, device=dev)
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    kw = dict(peak_lr=3e-4, total_steps=10_000)
+    opt, _, _ = train_step(model, params, opt, batch, **kw)  # warm: the build, the caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t = time.perf_counter()
+    opt, loss, _ = train_step(model, params, opt, batch, **kw)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts.snapshot()
+    check(torch.isfinite(loss).item(), f"{cfg.name}: step loss {loss}")
+    check(launches == {"flash_attention.tensor_core": 2 * cfg.n_layers},
+          f"the measured step launched {launches}")
+    del params, opt, batch, tokens
+    torch.cuda.empty_cache()
+    mem = dry["memory"]
+    rl = dry["roofline"]
+    share = analysis.roofline_share(cfg, shape, step_s)
+    # the estimate counts every op's outputs alive until freed, as the
+    # caching allocator holds them: within 1.5x of the card's peak either way
+    ratio = mem["peak_estimate_b"] / peak
+    check(1 / 1.5 <= ratio <= 1.5, f"dry-run peak estimate {mem['peak_estimate_b']} B against "
+          f"the card's {peak} B (ratio {ratio:.3f})")
+    print(f"[smoke] dryrun {cfg.name} train {r['batch']}x{r['seq']} (host counts on meta "
+          f"tensors, {dry_s:.1f} s): flops {dry['cost']['flops']:.6g}, bytes "
+          f"{dry['cost']['bytes_accessed']:.6g} (no fusion: an upper bound), arguments "
+          f"{mem['argument_size_b']} B, peak estimate {mem['peak_estimate_b']} B; on the card "
+          f"({nvidia_smi()}): max_memory_allocated {peak} B (estimate/card {ratio:.3f}), a step "
+          f"{step_s * 1e3:.3f} ms, loss {loss.item():.4f}; roofline over H100 constants: "
+          f"compute {rl['compute_s'] * 1e3:.3f} ms, memory {rl['memory_s'] * 1e3:.3f} ms, "
+          f"dominant {rl['dominant']}; model flops {rl['model_flops_global']:.6g} over 989 "
+          f"TFLOP/s in {step_s * 1e3:.3f} ms: roofline share {share:.5f}; useful ratio "
+          f"{rl['useful_flop_ratio']:.4f}")
+
+    # (b) the solver twin on the card and the stand-ins
+    s = DRYRUN_SOLVER
+    check(len(solver_ranks) == s["ranks"], f"the solver twin ran on {len(solver_ranks)} ranks")
+    rows = solver_ranks[0]["result"]
+    check(all(rk["result"] == rows for rk in solver_ranks),
+          "the solver twin's ranks counted differently")
+    dry_rows = dryrun_solver.dry_variants(s["n"], s["ranks"], dev)
+    strip = lambda rs: [{k: v for k, v in x.items() if k != "mesh"} for x in rs]  # noqa: E731
+    check(strip(rows) == strip(dry_rows),
+          f"the solver twin on the card {rows} differs from the dry stand-in {dry_rows}")
+    check(all(x["data_plane"] and x["mesh"] == "gloo" for x in rows),
+          f"the solver twin's supersteps: {rows}")
+    solver_launches = {}
+    for rk in solver_ranks:
+        for k, v in rk["launches"].items():
+            solver_launches[k] = solver_launches.get(k, 0) + v
+    check(set(solver_launches) == {"vc_expand"},
+          f"the solver twin launched {solver_launches}: want vc_expand only")
+    default = dryrun_solver.dry_variants(DRYRUN_DEFAULT["n"], DRYRUN_DEFAULT["workers"], dev)
+    for a, b in zip(rows, default):
+        print(f"[smoke] dryrun_solver {a['label']}: a superstep's collectives per rank at "
+              f"n {s['n']} on {s['ranks']} gloo ranks sharing the card == the dry stand-in: "
+              f"{a['collectives']['total']} B {a['collective_counts']}; stand-in of n "
+              f"{DRYRUN_DEFAULT['n']}, {DRYRUN_DEFAULT['workers']} workers: "
+              f"{b['collectives']['total']} B")
+    print(f"[smoke] dryrun_solver launches {solver_launches} (in phase 17's 4-rank job)")
+    return {"dry": dry, "peak_b": peak, "step_s": step_s, "share": share,
+            "solver": rows, "solver_default": default, "solver_launches": solver_launches}
+
+
+# -- phase 22: expert parallelism on the card ---------------------------------------
+
+# qwen3-moe-235b-a22b at full width cut to EP_LAYERS of 94 layers (bf16:
+# 2.49 GB of embeddings + 4.97 GB a layer, 22.4 GB in one process; a rank of 4
+# holds 32 experts a layer, 7.9 GB), at cf = E/K so that no assignment drops on
+# either route; 4 prompts of 1,024 tokens
+EP_MODEL = dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, seq=1024, seed=0)
+EP_RANKS = 4
+# bf16, fed the same layer input: the one-process route adds a token's K
+# products in ascending expert order, each add rounded to bf16; a rank adds
+# its own experts' products the same way and the M ranks' partial sums are
+# added once more: two orders of K + M rounded adds, each off by at most half
+# a bf16 step (2^-9) of a running sum no larger than the sum of |products|,
+# so (2K + M) half-steps relative bound the gap: 0.039 at K 8, M 4
+EP_BF16_TOL = (2 * 8 + EP_RANKS) * 2.0**-9
+EP_F32_TOL = 1e-5  # one layer in f32: the CPU tests' tolerance
+
+
+def _ep_cfg(dtype: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_lm import cut_depth
+
+    cfg = cut_depth(get_config(EP_MODEL["arch"]), EP_MODEL["layers"])
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k, dtype=dtype)
+
+
+def _ep_inputs(cfg, dev):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(EP_MODEL["seed"])
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (EP_MODEL["batch"], EP_MODEL["seq"])))
+    g = torch.Generator(device=dev).manual_seed(EP_MODEL["seed"] + 1)
+    x32 = torch.randn((EP_MODEL["batch"], 256, cfg.d_model), generator=g, device=dev)
+    return prompts, x32
+
+
+def _ep_rank(mesh, layer_inputs) -> dict:
+    """A rank of phase 22: the seeded init with its E/M experts, the bf16
+    prefill (untimed and timed: a device sync around each collective), the
+    MoE layers fed the one-process route's inputs, and one f32 layer."""
+    import torch
+
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import make_expert_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import init_expert_parallel
+
+    ep = make_expert_mesh(1, mesh.size, device=mesh.device)
+    dev = ep.model.device
+    cfg = _ep_cfg("bfloat16")
+    model = get_model(cfg)
+    params = init_expert_parallel(
+        cfg, ep, torch.Generator(device=dev).manual_seed(EP_MODEL["seed"]), dev)
+    prompts, x32 = _ep_inputs(cfg, dev)
+    batch = {"tokens": prompts.to(dev)}
+    model.forward(params, batch)  # warm: cuBLAS, the first collectives
+    torch.cuda.synchronize()
+    counts.reset()
+    ep.reset_collectives()
+    t = time.perf_counter()
+    logits = model.forward(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    launches = counts.snapshot()
+    coll = ep.collective_report()
+    ep.set_timing(True)
+    ep.reset_collectives()
+    t = time.perf_counter()
+    model.forward(params, batch)
+    torch.cuda.synchronize()
+    timed_s, coll_s = time.perf_counter() - t, ep.collective_s
+    ep.set_timing(False)
+    # results travel as numpy: a tensor crosses processes by a file
+    # descriptor that dies with this rank
+    with torch.inference_mode():
+        outs = [moe.moe_apply(cfg, bp.moe, y.to(dev))[0].float().cpu().numpy()
+                for bp, y in zip(params.blocks, layer_inputs)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, model
+    torch.cuda.empty_cache()
+    cfg32 = _ep_cfg("float32")
+    p32 = moe.MoE(cfg32, torch.Generator(device=dev).manual_seed(EP_MODEL["seed"] + 2), dev,
+                  experts=moe.expert_range(cfg32.n_experts, ep.model.rank, ep.model.size))
+    p32.ep = ep
+    with torch.inference_mode():
+        out32, aux32 = moe.moe_apply(cfg32, p32, x32)
+    return {"backend": ep.model.backend, "prefill_s": prefill_s, "timed_s": timed_s,
+            "collective_s": coll_s, "collectives": coll, "launches": launches,
+            "last_logits": logits[:, -1].float().cpu().numpy(), "moe_outs": outs,
+            "out32": out32.cpu().numpy(), "aux32": float(aux32), "peak_b": peak}
+
+
+def phase_ep(dev) -> dict:
+    """Phase 22: qwen3-moe-235b-a22b at full width, cut in depth, served
+    expert-parallel on 4 gloo ranks sharing the card (each E/M = 32 experts a
+    layer) and on a 1-rank NCCL group, against the one-process route at cf =
+    E/K: each MoE layer fed the same input (bf16, EP_BF16_TOL), one layer in
+    f32 (EP_F32_TOL), and the prefill's last logits; prefill tok/s, the
+    collectives' ms a layer and each rank's flash_attention launches.
+    Returns the launches summed over the ranks, and the readings."""
+    import torch
+
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.registry import get_model
+
+    cfg = _ep_cfg("bfloat16")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(EP_MODEL["seed"]), dev)
+    prompts, x32 = _ep_inputs(cfg, dev)
+    toks = prompts.to(dev)
+    layer_inputs, single_outs = [], []
+    with torch.inference_mode():
+        logits = model.forward(params, {"tokens": toks})
+        x = params.embed[toks].to(L.torch_dtype(cfg))
+        positions = torch.arange(x.shape[1], device=dev)
+        for bp in params.blocks:
+            h, _ = L.attention_apply(cfg, bp.attn, L.rmsnorm(x, bp.ln1, cfg.norm_eps), positions)
+            y = L.rmsnorm(x + h, bp.ln2, cfg.norm_eps)
+            layer_inputs.append(y.cpu())
+            single_outs.append(moe.moe_apply(cfg, bp.moe, y)[0].cpu())
+            x, _, _ = transformer.block_apply(cfg, bp, x, positions)
+    single_logits = logits[:, -1].float().cpu()
+    del params, model, logits, x
+    torch.cuda.empty_cache()
+    cfg32 = _ep_cfg("float32")
+    p32 = moe.MoE(cfg32, torch.Generator(device=dev).manual_seed(EP_MODEL["seed"] + 2), dev)
+    with torch.inference_mode():
+        want32, aux32 = moe.moe_apply(cfg32, p32, x32)
+    want32 = want32.cpu()
+    del p32
+    torch.cuda.empty_cache()
+
+    libs = ("flash_attention", "flash_attention_wgmma")
+    readings = {}
+    total = {}
+    for ranks in (EP_RANKS, 1):
+        t = time.perf_counter()
+        out = spawn_mesh(_ep_rank, ranks, timeout_s=MESH_TIMEOUT_S, args=(layer_inputs,),
+                         libraries=libs)
+        job_s = time.perf_counter() - t
+        r0 = out[0]
+        backend = "gloo" if ranks > 1 else "nccl"
+        check(all(r["backend"] == backend for r in out), f"EP on {ranks}: backends "
+              f"{[r['backend'] for r in out]}, want {backend}")
+        for r in out:
+            check(r["launches"] == {"flash_attention.tensor_core": cfg.n_layers},
+                  f"EP on {ranks} ranks: a rank's prefill launched {r['launches']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        for r in out:
+            for k in ("moe_outs", "out32", "last_logits"):
+                r[k] = ([torch.from_numpy(x) for x in r[k]] if k == "moe_outs"
+                        else torch.from_numpy(r[k]))
+        gaps = [_rel(o, w) for o, w in zip(r0["moe_outs"], single_outs)]
+        check(all(all(torch.equal(a, b) for a, b in zip(r["moe_outs"], r0["moe_outs"]))
+                  for r in out), f"EP on {ranks}: the ranks' summed layer outputs differ")
+        check(max(gaps) <= EP_BF16_TOL, f"EP on {ranks} ranks: bf16 MoE layer gaps {gaps} "
+              f"over {EP_BF16_TOL}")
+        gap32 = _rel(r0["out32"], want32)
+        aux_gap = abs(r0["aux32"] - float(aux32)) / abs(float(aux32))
+        check(gap32 <= EP_F32_TOL and aux_gap <= EP_F32_TOL,
+              f"EP on {ranks} ranks: f32 layer {gap32}, aux {aux_gap}")
+        logit_gap = _rel(r0["last_logits"], single_logits)
+        check(torch.isfinite(r0["last_logits"]).all().item(), "EP logits not finite")
+        tokens = EP_MODEL["batch"] * EP_MODEL["seq"]
+        prefill_s = max(r["prefill_s"] for r in out)
+        coll_ms = max(r["collective_s"] for r in out) * 1e3 / cfg.n_layers
+        c = r0["collectives"]
+        readings[ranks] = dict(prefill_tok_s=tokens / prefill_s, coll_ms_layer=coll_ms,
+                               gaps=gaps, gap32=gap32, logit_gap=logit_gap, job_s=job_s,
+                               peak_gb=max(r["peak_b"] for r in out) / 1e9)
+        print(f"[smoke] EP {cfg.name} ({cfg.n_layers} of 94 layers, d {cfg.d_model}, "
+              f"{cfg.n_experts} experts top-{cfg.top_k}, bf16, cf E/K) on {ranks} {backend} "
+              f"rank(s) sharing the card ({nvidia_smi()}): prefill {EP_MODEL['batch']}x"
+              f"{EP_MODEL['seq']} in {prefill_s * 1e3:.3f} ms ({tokens / prefill_s:.1f} tok/s; "
+              f"timed run {max(r['timed_s'] for r in out) * 1e3:.3f} ms with the collectives "
+              f"{coll_ms:.3f} ms a layer on the slowest rank); a rank's collectives "
+              f"{c['total']} B {c['counts']}; flash_attention {r0['launches']} a rank; MoE "
+              f"layers vs the one-process route on the same inputs {[f'{x:.3g}' for x in gaps]} "
+              f"(<= {EP_BF16_TOL:.4f}); f32 layer {gap32:.3g}, aux {aux_gap:.3g} (<= "
+              f"{EP_F32_TOL}); last logits vs one process {logit_gap:.4g}; peak "
+              f"{readings[ranks]['peak_gb']:.2f} GB a rank; job {job_s:.1f} s")
+    return {"launches": total, "readings": readings}
+
+
 # the attention kernels' instantiations that must be in the libraries, by
 # Itanium-mangled template arguments: the CUDA-core kernel's 16-chunk
 # accumulator (D 256) in f32 and bf16, the tensor-core kernel's 1, 2 and 4
@@ -4724,7 +5174,7 @@ def main() -> None:
     kernels["vc_expand"]["elastic_path"] = (
         "solves from resized snapshots of G(300, 4/299, 0), phase 16")
     # and the solve one worker a rank: every rank's launches, summed
-    mesh = timed("mesh", phase_mesh, dev)
+    mesh, dryrun_ranks = timed("mesh", phase_mesh, dev)
     for name in ("vc_expand", "clique_expand"):
         kernels[name]["mesh_launches"] = mesh.get(name, 0)
         check(kernels[name]["mesh_launches"] > 0, f"phase 17 launched no {name}")
@@ -4799,6 +5249,25 @@ def main() -> None:
         "launches a step), phase 20")
     kernels["wkv6"]["train_shape"] = trained["backward"]["wkv6"]
     check(sum(trained["rwkv"]["launches"].values()) > 0, "the training path launched no wkv6")
+
+    # phase 21: the dry run beside the card (training on meta tensors, the
+    # solver twin's collectives on 4 ranks); its solver ranks launch vc_expand
+    dry = timed("dryrun", phase_dryrun, dev, dryrun_ranks)
+    kernels["vc_expand"]["dryrun_launches"] = dry["solver_launches"].get("vc_expand", 0)
+    kernels["vc_expand"]["dryrun_path"] = (
+        "the solver twin of launch/dryrun_solver.py: one superstep of each of the four "
+        "control planes at the paper's width on 4 gloo ranks sharing the card, summed over "
+        "the ranks, phase 21")
+    check(kernels["vc_expand"]["dryrun_launches"] > 0, "phase 21 launched no vc_expand")
+    # phase 22: expert parallelism, the attention kernel's fifth path
+    ep = timed("ep", serve(phase_ep), dev)
+    attn["ep_launches"] = ep["launches"]
+    attn["ep_path"] = (
+        f"expert-parallel prefills of qwen3-moe-235b-a22b ({EP_MODEL['layers']} of 94 layers, "
+        f"4 x 1,024 tokens, bf16), each rank one launch a layer: {EP_RANKS} gloo ranks sharing "
+        "the card and a 1-rank NCCL group, summed over the ranks, phase 22")
+    check(sum(ep["launches"].values()) == (EP_RANKS + 1) * EP_MODEL["layers"],
+          f"phase 22 launched {ep['launches']}")
 
     print(f"[smoke] phase walls (s): {walls}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -3,20 +3,68 @@
 The port of ``repro/api/result.py``'s ``SolveStats``/``SolveResult``,
 ``ServiceStats``, ``LaneStats``/``BatchSolveResult`` and their converters,
 holding the counters the ported backends write.  The JAX package's
-deprecated dict-style access to ``stats`` is not carried over: read
-attributes (``r.stats.overflow_count``).
+deprecated dict-style access to the stats (``stats["key"]``, ``.get``,
+``in``, ``.keys``, ``.items``) comes along as ``_DictAccessShim``: it warns
+(``DeprecationWarning``) and delegates to the attributes; read attributes
+(``r.stats.overflow_count``) instead, and ``to_dict()`` for a plain dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
 
 
+class _DictAccessShim:
+    """Deprecation bridge (JAX ``repro/api/result.py:29-70``): the
+    pre-unification dict-style stats access (``stats["key"]`` / ``.get`` /
+    ``in`` / ``.keys``) warns once per call site and delegates to the
+    dataclass attributes."""
+
+    def _names(self):
+        return [f.name for f in dataclasses.fields(self)]
+
+    def _warn(self):
+        warnings.warn(
+            f"dict-style access to {type(self).__name__} is deprecated and "
+            f"will be removed in v1.0; read attributes instead "
+            f"(e.g. r.stats.overflow_count, r.stats.service.deadline_hit)",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+
+    def __getitem__(self, key):
+        self._warn()
+        if key in self._names():
+            return getattr(self, key)
+        raise KeyError(key)
+
+    def get(self, key, default=None):
+        self._warn()
+        return getattr(self, key, default) if key in self._names() else default
+
+    def __contains__(self, key):
+        self._warn()
+        return key in self._names()
+
+    def keys(self):
+        self._warn()
+        return list(self._names())
+
+    def items(self):
+        self._warn()
+        return [(name, getattr(self, name)) for name in self._names()]
+
+    def to_dict(self) -> dict:
+        """Plain-dict view (JSON-safe, no deprecation warning)."""
+        return _jsonable(dataclasses.asdict(self))
+
+
 @dataclasses.dataclass
-class ServiceStats:
+class ServiceStats(_DictAccessShim):
     """The service envelope around one completed ticket (the spmd service
     only): which lane and plane solved it, its queue wait and lane
     residency (wall seconds on the service's clock), and whether its
@@ -43,7 +91,7 @@ class ServiceStats:
 
 
 @dataclasses.dataclass
-class SolveStats:
+class SolveStats(_DictAccessShim):
     """Backend-specific counters; fields a backend does not track stay 0."""
 
     # -- spmd engine (collective-traffic accounting) --------------------------
@@ -98,7 +146,7 @@ class SolveStats:
 
 
 @dataclasses.dataclass
-class LaneStats:
+class LaneStats(_DictAccessShim):
     """Batched-plane occupancy: ``chunk_calls`` (chunk dispatches),
     ``lane_chunks`` (chunk_calls × plane width — paid lane slots),
     ``live_lane_chunks`` (slots that held an unfinished instance) and their

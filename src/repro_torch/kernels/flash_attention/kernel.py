@@ -38,7 +38,9 @@ and does 8.6 GFLOP of products (~0.009 ms on the bf16 tensor cores).
 A CPU tensor takes the plain version (the blockwise online softmax of
 ``ops.py`` on f32 copies of q, k and v, cast back to q's dtype: the
 arithmetic of the Pallas kernel) because it lies on the CPU; a CUDA tensor
-launches a kernel or raises.  There is no fallback.
+launches a kernel or raises.  There is no fallback.  A ``meta`` tensor
+(the dry run's) takes the meta route of :mod:`repro_torch.kernels.meta`:
+the plain version as one key block, shapes only, no launch.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, counts
+from repro_torch.kernels import build, counts, meta
 
 BLOCK_K = 64  # the plain version's key block: Pallas', CUDA-core's, tensor-core's to D 128
 MAX_HEAD_DIM = 256
@@ -137,13 +139,25 @@ def _check(q, k, v, window) -> None:
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None):
     """The kernel's plain version: the Pallas kernel's arithmetic (q, k, v
-    in f32, q scaled in f32, f32 accumulators, output in q's dtype)."""
+    in f32, q scaled in f32, f32 accumulators, output in q's dtype).  On
+    ``meta`` tensors it runs as one key block: the same products, one trace
+    step (the dry run's)."""
     from repro_torch.kernels.flash_attention.ops import blockwise_attention
 
+    block_k = max(k.shape[1], 1) if q.device.type == "meta" else BLOCK_K
     out = blockwise_attention(
-        q.float(), k.float(), v.float(), causal=causal, window=window, block_k=BLOCK_K,
+        q.float(), k.float(), v.float(), causal=causal, window=window, block_k=block_k,
     )
     return out.to(q.dtype)
+
+
+def _meta_route(q, k, v, *, causal, window):
+    """Shapes only (:mod:`repro_torch.kernels.meta`): the plain version, its
+    products counted with the masked pairs, the kernel's bytes recorded;
+    nothing launches."""
+    with meta.fused("flash_attention", (q, k, v)) as outputs:
+        outputs.append(flash_attention_plain(q, k, v, causal=causal, window=window))
+    return outputs[0]
 
 
 def flash_attention(
@@ -166,6 +180,8 @@ def flash_attention(
         raise ValueError(f"{name}: unknown variant {variant!r}; known: auto, {', '.join(VARIANTS)}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return _meta_route(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     if q.dtype not in _DTYPES:

@@ -23,7 +23,9 @@ Decays are clipped to [1e-30, 1] as the TPU kernel does
 (``log(clip(decay, 1e-30, 1))``, kernel.py:113); multiplying by the clipped
 decay is the same function.  A CPU tensor takes the plain version
 (``wkv6_ref`` on the clipped decays) because it lies on the CPU; a CUDA
-tensor launches the kernel or raises.  There is no fallback.
+tensor launches the kernel or raises.  There is no fallback.  A ``meta``
+tensor (the dry run's) takes ``meta_route``: shapes only, its FLOPs by
+formula, no launch.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, counts
+from repro_torch.kernels import build, counts, meta
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 MAX_K = MAX_V = 64  # the model's HEAD_SIZE (csrc/wkv6.cu kMaxK, kMaxV)
@@ -72,6 +74,25 @@ def _check(r, k, v, decay, u, initial_state) -> None:
         raise ValueError(f"{name}: inputs on {[str(t.device) for t in tensors]}")
 
 
+# the recurrence's FLOPs a (b, t, h, k, v): kv = k*v, o += r*(s + u*kv),
+# s = d*s + kv forward (5); the gradient of each of them backward (12)
+FLOPS_FORWARD = 5
+FLOPS_BACKWARD = 12
+
+
+def meta_route(r, k, v, decay, u, initial_state=None):
+    """Shapes only (:mod:`repro_torch.kernels.meta`): (out, final_state)
+    of the right shapes, the recurrence's FLOPs by formula; nothing
+    launches and the loop over T is not traced."""
+    B, T, H, K = r.shape
+    V = v.shape[3]
+    with meta.fused("wkv6", (r, k, v, decay, u, initial_state),
+                    flops=FLOPS_FORWARD * B * T * H * K * V) as outputs:
+        outputs += [torch.empty((B, T, H, V), dtype=torch.float32, device=r.device),
+                    torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)]
+    return tuple(outputs)
+
+
 def wkv6(
     r: torch.Tensor,  # (B, T, H, K)
     k: torch.Tensor,
@@ -86,6 +107,8 @@ def wkv6(
     _check(r, k, v, decay, u, initial_state)
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, decay.clamp(1e-30, 1.0), u, initial_state)
+    if r.device.type == "meta":
+        return meta_route(r, k, v, decay, u, initial_state)
     if r.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {r.device}")
     tensors = [t for t in (r, k, v, decay, u, initial_state) if t is not None]

@@ -17,19 +17,32 @@ returns that gradient, for the output and the final state alike (an
 initial state that requires grad gets one too).  It is the gradient JAX
 takes: the JAX package trains through ``"ref"``.  The plain backward loops
 over T in Python.  Under ``no_grad`` or ``inference_mode`` the kernel is
-called directly.
+called directly.  On ``meta`` tensors (the dry run) the backward is shapes
+only, its FLOPs by formula (``_meta_backward``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.wkv6.kernel import wkv6
+from repro_torch.kernels import meta
+from repro_torch.kernels.wkv6.kernel import FLOPS_BACKWARD, wkv6
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 
 def _plain(r, k, v, decay, u, initial_state):
     return wkv6_ref(r, k, v, decay.clamp(1e-30, 1.0), u, initial_state)
+
+
+def _meta_backward(saved):
+    """The gradient's shapes (:mod:`repro_torch.kernels.meta`), its FLOPs
+    by formula: the plain backward's loop over T is not traced."""
+    r, v = saved[0], saved[2]
+    B, T, H, K = r.shape
+    with meta.fused("wkv6.backward", (*saved,),
+                    flops=FLOPS_BACKWARD * B * T * H * K * v.shape[3]) as outputs:
+        outputs += [None if t is None else torch.empty_like(t) for t in saved]
+    return tuple(outputs)
 
 
 class WKV6(torch.autograd.Function):
@@ -43,6 +56,8 @@ class WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_state):
         saved = ctx.saved_tensors
+        if saved[0].device.type == "meta":
+            return _meta_backward(saved)
         with torch.enable_grad():
             inputs = [None if t is None else t.detach().requires_grad_(True) for t in saved]
             out, state = _plain(*inputs)

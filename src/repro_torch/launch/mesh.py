@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.superstep import WorkerState, map_state
+from repro_torch.launch.analysis import collective_bytes
 
 # the solver's kernel libraries, built once before a job's ranks start
 SOLVER_LIBRARIES = ("vc_expand", "clique_expand", "bitset_ops", "expand_stats")
@@ -52,10 +53,14 @@ class SolverMesh:
     ``device``, the collectives on ``backend``.
 
     The collectives are calls every rank makes in the same order, each on
-    this rank's block of a leading axis of 1; ``collectives`` counts them.
-    With ``timing`` on, each is bracketed by device synchronisations and
-    its host wall adds to ``collective_s`` (so the work queued before it is
-    not counted as its time); off, a collective costs no extra sync."""
+    this rank's block of a leading axis of 1; ``collectives`` counts them,
+    and ``coll_bytes``/``coll_counts`` their result bytes and number by
+    kind (``"all-gather"``, ``"all-reduce"``), the convention of
+    :func:`repro_torch.launch.analysis.collective_bytes`
+    (``collective_report``).  With ``timing`` on, each is bracketed by
+    device synchronisations and its host wall adds to ``collective_s`` (so
+    the work queued before it is not counted as its time); off, a
+    collective costs no extra sync."""
 
     rank: int
     size: int
@@ -65,6 +70,23 @@ class SolverMesh:
     timing: bool = False
     collectives: int = 0
     collective_s: float = 0.0
+    coll_bytes: dict = dataclasses.field(default_factory=dict)
+    coll_counts: dict = dataclasses.field(default_factory=dict)
+
+    def _count(self, kind: str, result: torch.Tensor) -> None:
+        nbytes = result.numel() * result.element_size()
+        self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + nbytes
+        self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
+
+    def collective_report(self) -> dict:
+        """The collectives issued since the last reset, by kind: result
+        bytes (an all-reduce's ×2), ``total`` and ``counts``."""
+        return collective_bytes(self.coll_bytes, self.coll_counts)
+
+    def reset_collectives(self) -> None:
+        self.collectives, self.collective_s = 0, 0.0
+        self.coll_bytes.clear()
+        self.coll_counts.clear()
 
     def _call(self, fn) -> None:
         self.collectives += 1
@@ -86,11 +108,13 @@ class SolverMesh:
         # form's 5.5-13.3 (python -m repro_torch.launch.collective_probe)
         block = block.contiguous()
         out = block.new_empty((self.size * block.shape[0], *block.shape[1:]))
+        self._count("all-gather", out)
         self._call(lambda: dist.all_gather_into_tensor(out, block, group=self.group))
         return out
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         out = t.clone()
+        self._count("all-reduce", out)
         self._call(lambda: dist.all_reduce(out, op=op, group=self.group))
         return out
 
@@ -105,6 +129,10 @@ class SolverMesh:
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise sum of ``t`` over the ranks (JAX's ``psum``)."""
         return self._all_reduce(t, dist.ReduceOp.SUM)
+
+    def all_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise mean of ``t`` over the ranks (JAX's ``pmean``)."""
+        return self.all_sum(t) / self.size
 
     def barrier(self) -> None:
         self._call(lambda: dist.barrier(group=self.group))
@@ -127,6 +155,106 @@ class SolverMesh:
         return map_state(
             lambda x: self.all_gather(x.to(torch.int32)).to(x.dtype), block
         )
+
+
+class DrySolverMesh(SolverMesh):
+    """A stand-in of one rank of a ``size``-rank mesh in a single process:
+    it issues no communication and counts each collective's shapes as the
+    real mesh would.  ``all_gather`` returns this rank's block in its
+    place and zeros for every other rank (idle peers: a rank with work
+    finds takers), an all-reduce returns this rank's operand, a barrier
+    returns.  Shapes, so bytes and counts, equal a real group's wherever
+    the same collectives run."""
+
+    def __init__(self, size: int, *, device, rank: int = 0):
+        super().__init__(rank=rank, size=size, group=None, device=torch.device(device),
+                         backend="none")
+
+    def all_gather(self, block: torch.Tensor) -> torch.Tensor:
+        block = block.contiguous()
+        out = block.new_zeros((self.size * block.shape[0], *block.shape[1:]))
+        self._count("all-gather", out)
+        n = block.shape[0]
+        self._call(lambda: out[self.rank * n:(self.rank + 1) * n].copy_(block))
+        return out
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        out = t.clone()
+        self._count("all-reduce", out)
+        self._call(lambda: None)
+        return out
+
+    def barrier(self) -> None:
+        self._call(lambda: None)
+
+
+@dataclasses.dataclass
+class ExpertMesh:
+    """A rank's view of the (data D, model M) grid of expert-parallel
+    serving (JAX's ``_moe_shard_map`` mesh): rank ``r`` of the D·M is data
+    rank ``r // M`` and model rank ``r % M``; ``model`` is the mesh of its
+    data row (the M ranks that split the experts and sum each layer's
+    output), ``data`` the mesh of its model column (the D ranks that hold
+    the same experts and pool the router statistics)."""
+
+    data: SolverMesh
+    model: SolverMesh
+
+    @property
+    def meshes(self) -> tuple:
+        return (self.model, self.data)
+
+    def set_timing(self, on: bool) -> None:
+        for m in self.meshes:
+            m.timing = on
+
+    @property
+    def collective_s(self) -> float:
+        return sum(m.collective_s for m in self.meshes)
+
+    def reset_collectives(self) -> None:
+        for m in self.meshes:
+            m.reset_collectives()
+
+    def collective_report(self) -> dict:
+        result, counts = {}, {}
+        for m in self.meshes:
+            for k, v in m.coll_bytes.items():
+                result[k] = result.get(k, 0) + v
+            for k, v in m.coll_counts.items():
+                counts[k] = counts.get(k, 0) + v
+        return collective_bytes(result, counts)
+
+
+def make_expert_mesh(data: int, model: int, *, device=None) -> ExpertMesh:
+    """The (data, model) grid over the initialized default process group
+    of ``data * model`` ranks (every rank makes the same subgroups in the
+    same order); ``ValueError`` when the world is another size."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError("the expert mesh needs an initialized torch.distributed process group")
+    world = dist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"a ({data}, {model}) expert grid needs {data * model} ranks; the "
+                         f"process group has {world}")
+    rank = dist.get_rank()
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = dist.get_backend()
+    rows = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+    cols = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+    d, m = divmod(rank, model)
+    return ExpertMesh(
+        data=SolverMesh(rank=d, size=data, group=cols[m], device=dev, backend=backend),
+        model=SolverMesh(rank=m, size=model, group=rows[d], device=dev, backend=backend),
+    )
+
+
+def dry_expert_mesh(data: int, model: int, device="meta") -> ExpertMesh:
+    """One rank (data 0, model 0) of a (data, model) grid, no communication:
+    the dry run's stand-in."""
+    return ExpertMesh(data=DrySolverMesh(data, device=device),
+                      model=DrySolverMesh(model, device=device))
 
 
 _NO_CUDA = ("the solver mesh runs on CUDA devices by default and CUDA is not "
@@ -213,7 +341,7 @@ def _rank_main(fn, rank, world, init_method, backend, device, timeout_s, args, r
 
 
 def spawn_mesh(fn: Callable, num_workers: int, *, device=None, timeout_s: float = 600.0,
-               args: tuple = ()) -> list:
+               args: tuple = (), libraries=SOLVER_LIBRARIES) -> list:
     """Run ``fn(mesh, *args)`` on ``num_workers`` ranks of a new process
     group on this host; returns the ranks' results in rank order.
 
@@ -223,8 +351,8 @@ def spawn_mesh(fn: Callable, num_workers: int, *, device=None, timeout_s: float 
     fork), meet through a ``file://`` store in a temporary directory (no TCP
     port to collide with) and run the backend :func:`mesh_backend` picks for
     ``device`` (None: the card, each rank ``cuda:rank % device_count``).
-    With CUDA, the solver's kernel libraries are built here first, once,
-    rather than by every rank.
+    With CUDA, the kernel ``libraries`` the ranks launch (the solver's by
+    default) are built here first, once, rather than by every rank.
 
     Everything is bounded by ``timeout_s``: the group's own timeout and the
     wait for the results.  When a rank raises, dies or the time runs out,
@@ -236,7 +364,7 @@ def spawn_mesh(fn: Callable, num_workers: int, *, device=None, timeout_s: float 
             raise RuntimeError(_NO_CUDA)
         from repro_torch.kernels import build
 
-        build.build_all(SOLVER_LIBRARIES)
+        build.build_all(libraries)
     backend = mesh_backend(dev, num_workers)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()

@@ -19,7 +19,12 @@ encoder-decoder's encoder and decoder alike): a full-width
 qwen3-moe-235b-a22b is ~470 GB in bf16, 8 of its 94 layers ~42 GB.  It runs
 on the card unless ``--device cpu`` asks for the CPU, and raises without
 CUDA.  The example's balancer demonstration is in its twin,
-``repro_torch.examples.serve_lm``.
+``repro_torch.examples.serve_lm``.  ``--expert-ranks M [--data-ranks D]``
+serves an MoE config expert-parallel (``models/moe.py``'s ``moe_apply_ep``,
+JAX's ``_moe_shard_map``) on D·M ranks of this host started by
+``launch/mesh.py``'s ``spawn_mesh``: each holds E/M experts of every layer
+and its data row's share of the prompts (gloo where ranks share a card,
+NCCL with a card a rank).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_lm                 # qwen1.5-0.5b
@@ -34,6 +39,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch whisper-large-v3 \\
       --prompt-len 448 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-moe-235b-a22b \
+      --smoke --device cpu --expert-ranks 2 --data-ranks 2
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-moe-235b-a22b \
+      --layers 4 --prompt-len 1024 --gen 8 --expert-ranks 4
 """
 
 from __future__ import annotations
@@ -111,6 +120,73 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.inference_mode()
+def serve_expert_parallel(mesh, spec: dict) -> dict:
+    """One rank of ``main``'s expert-parallel run (``--expert-ranks M``,
+    ``--data-ranks D``), started by ``spawn_mesh`` on D·M ranks: the rank's
+    (data, model) place in the grid, the seeded init with its E/M experts
+    (the same numbers as the one-process init), its data row's share of the
+    prompts, the prefill and the greedy decode, both timed.  -> host values
+    (numpy: a tensor would cross processes by a file descriptor that dies
+    with the rank): the tokens generated for its prompts, the prefill's last
+    logits, walls, and the prefill's launches and collectives (count, bytes)."""
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import make_expert_mesh
+    from repro_torch.models.transformer import init_expert_parallel
+
+    D, M = spec["data_ranks"], spec["expert_ranks"]
+    ep = make_expert_mesh(D, M, device=mesh.device)
+    device = ep.model.device
+    cfg = spec["cfg"]
+    model = get_model(cfg)
+    params = init_expert_parallel(
+        cfg, ep, torch.Generator(device=device).manual_seed(spec["seed"]), device)
+    prompts = torch.as_tensor(spec["prompts"])
+    B = prompts.shape[0]
+    if B % D:
+        raise ValueError(f"{D} data ranks do not divide a batch of {B}")
+    d = ep.data.rank
+    mine = prompts[d * (B // D):(d + 1) * (B // D)].to(device)
+    counts.reset()
+    ep.reset_collectives()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits = model.forward(params, {"tokens": mine})
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    prefill = {"launches": counts.snapshot(), "collectives": ep.collective_report()}
+    t0 = time.perf_counter()
+    toks, _ = greedy_decode(model, params, mine, spec["gen"])
+    _sync(device)
+    return {
+        "data_rank": d, "model_rank": ep.model.rank, "backend": ep.model.backend,
+        "tokens": toks.cpu().tolist(), "last_logits": logits[:, -1].float().cpu().numpy(),
+        "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0, "prefill": prefill,
+    }
+
+
+def _main_expert_parallel(args, cfg, prompts) -> dict:
+    from repro_torch.launch.mesh import spawn_mesh
+
+    D, M = args.data_ranks, args.expert_ranks
+    spec = dict(cfg=cfg, seed=args.seed, prompts=prompts.cpu().numpy(), gen=args.gen,
+                data_ranks=D, expert_ranks=M)
+    ranks = spawn_mesh(serve_expert_parallel, D * M, device=args.device, args=(spec,),
+                       libraries=("flash_attention", "flash_attention_wgmma"))
+    rows = [r for r in ranks if r["model_rank"] == 0]  # one rank a data row
+    toks = torch.tensor([t for r in rows for t in r["tokens"]])
+    prefill_s = max(r["prefill_s"] for r in ranks)
+    decode_s = max(r["decode_s"] for r in ranks)
+    shape = (prompts.shape[0], prompts.shape[1])
+    print(f"[serve_lm] {cfg.name} on {D * M} ranks ({D} data x {M} expert, "
+          f"{ranks[0]['backend']}): prefill {shape} in {prefill_s:.3f}s "
+          f"({shape[0] * shape[1] / prefill_s:.1f} tok/s)")
+    print(f"[serve_lm] generated {tuple(toks.shape)} in {decode_s:.1f}s "
+          f"({args.batch * args.gen / decode_s:.1f} tok/s)")
+    print("[serve_lm] sample:", toks[0, :16].tolist())
+    return {"tokens": toks, "prefill_s": prefill_s, "decode_s": decode_s, "ranks": ranks}
+
+
+@torch.inference_mode()
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b",
@@ -128,11 +204,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; there is no silent "
                          "fallback to the CPU)")
+    ap.add_argument("--expert-ranks", type=int, default=0,
+                    help="serve an MoE config expert-parallel over M ranks of this host "
+                         "(each holds E/M experts; gloo where ranks share a card, NCCL "
+                         "with a card a rank); 0: one process")
+    ap.add_argument("--data-ranks", type=int, default=1,
+                    help="with --expert-ranks: D data ranks, each serving its share of "
+                         "the batch (D x M ranks in all)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cut_depth(cfg, args.layers)
+    if args.expert_ranks:
+        prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, (args.batch, args.prompt_len)))
+        return _main_expert_parallel(args, cfg, prompts)
     model = get_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed), device)
     rng = np.random.default_rng(args.seed)

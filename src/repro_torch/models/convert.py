@@ -14,6 +14,9 @@ unstacked units.
   splits the stacked leaves per layer and loads them, cast to each
   parameter's dtype (an MoE router and Griffin's ``b_a``, ``b_x`` and
   ``lam`` stay f32 in a bf16 model, as in JAX).
+* ``expert_shard(tree, rank, ranks)`` cuts a transformer tree's MoE banks
+  to one expert-parallel model rank's experts (the router whole), for
+  ``load_jax_params`` into ``init_lm(cfg, experts=...)``.
 * ``export_params(model)`` is the reverse: the model's parameters as a JAX
   tree of detached tensors in their own dtypes, the stacked leaves stacked.
   ``export_tree(model, named)`` and ``import_tree(tree)`` carry any tree
@@ -36,6 +39,7 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.griffin import lru_lambda
+from repro_torch.models.moe import expert_range
 
 HEAD_SIZE = 64  # rwkv6.HEAD_SIZE
 # the subtrees whose leaves are stacked over layers (or Griffin's units)
@@ -80,6 +84,17 @@ def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
     """Load a JAX parameter tree into ``model`` (every leaf, strictly)."""
     model.load_state_dict(import_tree(tree), strict=True)
     return model
+
+
+def expert_shard(tree: dict, rank: int, ranks: int) -> dict:
+    """A transformer's JAX tree with each MoE bank cut to model rank
+    ``rank``'s experts of ``ranks`` (``w1``/``w3``/``w2`` (L, E, ...) ->
+    (L, E/ranks, ...); the router whole): what an expert-parallel rank
+    loads (``load_jax_params`` into ``init_lm(cfg, experts=expert_range(...))``)."""
+    moe = tree["blocks"]["moe"]
+    lo, hi = expert_range(moe["w1"].shape[1], rank, ranks)
+    cut = {**moe, **{k: moe[k][:, lo:hi] for k in ("w1", "w3", "w2")}}
+    return {**tree, "blocks": {**tree["blocks"], "moe": cut}}
 
 
 def export_tree(model: nn.Module, named: dict) -> dict:

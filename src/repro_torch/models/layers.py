@@ -10,10 +10,12 @@ dtype; matmuls run in the parameters' dtype.
 Parameters are trainable (``requires_grad``); serving runs under
 ``torch.inference_mode()``, so its forwards build no graph.  ``remat`` is the
 per-block rematerialisation of training, the counterpart of ``jax.checkpoint``
-with JAX's default ``nothing_saveable`` policy: a block keeps only its
-inputs and reruns its forward in the backward pass.  Left out:
-``SCAN_UNROLL``, ``REMAT_POLICY``'s ``"dots"`` option and the sharding
-calls, which serve only XLA lowering.  ``jax.nn.gelu`` defaults to the tanh
+under ``REMAT_POLICY``: ``"nothing"`` (JAX's default ``nothing_saveable``:
+a block keeps only its inputs and reruns its forward in the backward pass)
+or ``"dots"`` (``checkpoint_dots_with_no_batch_dims``, through
+``torch.utils.checkpoint``'s selective-checkpoint contexts).  Left out:
+``SCAN_UNROLL`` (the port has no scan: eager code runs every layer) and the
+sharding calls, which serve only XLA lowering.  ``jax.nn.gelu`` defaults to the tanh
 approximation, so the GELU MLP (Griffin, Whisper) uses
 ``F.gelu(approximate="tanh")``, not torch's default erf.
 """
@@ -42,13 +44,47 @@ def param(shape, dtype, *, std=None, fill=None, generator=None, device=None) -> 
     return nn.Parameter(t.to(dtype))
 
 
+# The remat policy of every block (JAX's ``layers.REMAT_POLICY``, the dry
+# run's ``--remat``): "nothing" keeps only the block's inputs and reruns its
+# forward in the backward pass (``nothing_saveable``); "dots" saves the
+# outputs of the unbatched matrix products and reruns the rest
+# (``checkpoint_dots_with_no_batch_dims``).
+REMAT_POLICY = ["nothing"]
+REMAT_POLICIES = ("nothing", "dots")
+
+# the products "dots" saves: a 2-D product (``x @ W`` folds its leading dims
+# into one ``mm``).  A batched product (``bmm``: attention's einsums, the
+# MoE experts) is recomputed, as JAX's policy saves no dot with batch dims.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant) when a gradient is to be
-    taken; a plain call otherwise."""
-    if torch.is_grad_enabled():
+    (``torch.utils.checkpoint``, non-reentrant) under ``REMAT_POLICY``
+    when a gradient is to be taken; a plain call otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    policy = REMAT_POLICY[0]
+    if policy == "nothing":
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    if policy == "dots":
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 context_fn=_remat_context)
+    raise ValueError(f"unknown remat policy {policy!r}; known: {', '.join(REMAT_POLICIES)}")
 
 
 def dense(d_in, d_out, dtype, generator, device) -> nn.Parameter:

@@ -15,9 +15,10 @@ carry ``patch_embeds`` (B, n_patches, d), prepended to the tokens as the JAX
 facade's ``fwd`` does; an ``encdec`` batch carries ``frames`` (B, enc_seq,
 d).  ``loss_fn`` runs both LM kernels (their gradients are their plain
 versions'), where JAX's trains through its plain paths.  An unknown family
-raises ``ValueError``, as JAX's ``get_model`` does.  ``batch_spec``, which
-serves only the XLA dry-run, waits with the dry-run tools (ROADMAP queue 1,
-item 14g).
+raises ``ValueError``, as JAX's ``get_model`` does.  ``batch_spec(shape)``
+describes one train or prefill batch as ``meta`` tensors (the shapes and
+dtypes of JAX's ``ShapeDtypeStruct``s), the inputs of the dry run
+(:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, griffin, rwkv6, transformer
 
 
@@ -39,6 +40,26 @@ class Model:
     forward: Callable
     init_decode_cache: Callable
     decode_fn: Callable
+
+    def batch_spec(self, shape: ShapeConfig, device="meta") -> dict:
+        """One train/prefill batch of ``shape`` as empty tensors on
+        ``device`` (meta: no storage), JAX's ``Model.batch_spec``: token
+        dims at the GLOBAL batch; a vlm's ``patch_embeds`` and an encdec's
+        ``frames`` in the config's dtype, ``tokens`` (and for ``train``
+        ``labels``) int32."""
+        B, S = shape.global_batch, shape.seq_len
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        spec: dict = {}
+        if cfg.family == "encdec":
+            spec["frames"] = torch.empty((B, cfg.enc_seq, cfg.d_model), dtype=dt, device=device)
+        if cfg.family == "vlm":
+            spec["patch_embeds"] = torch.empty((B, cfg.n_patches, cfg.d_model), dtype=dt,
+                                               device=device)
+        spec["tokens"] = torch.empty((B, S), dtype=torch.int32, device=device)
+        if shape.kind == "train":
+            spec["labels"] = torch.empty((B, S), dtype=torch.int32, device=device)
+        return spec
 
 
 def _serving(fn: Callable) -> Callable:

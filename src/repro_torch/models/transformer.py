@@ -25,17 +25,17 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.moe import MoE, attach_expert_mesh, expert_range, moe_apply
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None, experts=None):
         super().__init__()
         self.ln1 = L.param((cfg.d_model,), torch.float32, fill=1.0, device=device)
         self.attn = L.Attention(cfg, generator, device)
         self.ln2 = L.param((cfg.d_model,), torch.float32, fill=1.0, device=device)
         if cfg.is_moe:
-            self.moe = MoE(cfg, generator, device)
+            self.moe = MoE(cfg, generator, device, experts)
         else:
             self.mlp = L.MLP(cfg, generator, device)
 
@@ -43,23 +43,38 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """embed (vocab, d), blocks[L], ln_f (d,), unembed (d, vocab)."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None, experts=None):
         super().__init__()
         self.cfg = cfg
         dt = L.torch_dtype(cfg)
         d = cfg.d_model
         self.embed = L.param((cfg.vocab, d), dt, std=d**-0.5, generator=generator, device=device)
-        self.blocks = nn.ModuleList(Block(cfg, generator, device) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, generator, device, experts)
+                                    for _ in range(cfg.n_layers))
         self.ln_f = L.param((d,), torch.float32, fill=1.0, device=device)
         self.unembed = L.param((d, cfg.vocab), dt, std=d**-0.5, generator=generator,
                                device=device)
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
+def init_lm(cfg: ModelConfig, generator: torch.Generator | None = None, device=None,
+            experts=None):
     """The JAX init's distributions (normal weights scaled by d_in^-0.5,
     unit norms, zero biases) drawn from ``generator``; the numbers differ
-    from ``jax.random``'s."""
-    return TransformerLM(cfg, generator, device)
+    from ``jax.random``'s.  ``experts=(lo, hi)``: every MoE layer keeps
+    experts [lo, hi) of its bank, the same numbers as the whole init's."""
+    return TransformerLM(cfg, generator, device, experts)
+
+
+def init_expert_parallel(cfg: ModelConfig, ep, generator=None, device=None):
+    """Model rank ``ep.model.rank``'s model: the whole init's numbers, each
+    MoE bank cut to the rank's E/M experts, routed through ``ep``
+    (``moe.moe_apply_ep``).  E % M != 0 raises ``ValueError``."""
+    E, M = cfg.n_experts, ep.model.size
+    if not cfg.is_moe or E % M:
+        raise ValueError(f"expert parallelism needs an MoE config whose {E} experts the "
+                         f"{M} model ranks divide")
+    experts = expert_range(E, ep.model.rank, M)
+    return attach_expert_mesh(init_lm(cfg, generator, device, experts), ep)
 
 
 def block_apply(cfg, bp: Block, x, positions, attn_impl="kernel", cache=None):

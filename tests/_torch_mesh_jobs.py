@@ -194,3 +194,45 @@ def chunk_trajectory(mesh, graph: dict, chunk_rounds: int, max_chunks: int) -> l
         if done:
             break
     return out
+
+
+def moe_ep(mesh, cases: list) -> dict:
+    """``{label: [per rank (data rank, model rank, out, aux)]}``: the
+    expert-parallel MoE layer (``moe_apply_ep``) of block 0 on each case's
+    (data D, model M) grid of the job's D·M ranks; a case is ``(label, cfg,
+    tree, x, (D, M))`` with ``tree`` the model's JAX tree (a rank loads its
+    experts' cut of it, ``expert_shard``) and ``x`` (B, S, d) the whole
+    batch (a data rank takes its rows)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_expert_mesh
+    from repro_torch.models.convert import expert_shard, load_jax_params
+    from repro_torch.models.moe import expert_range, moe_apply_ep
+    from repro_torch.models.transformer import init_lm
+
+    torch.set_num_threads(1)
+
+    def run(cfg, tree, x, grid):
+        D, M = grid
+        ep = make_expert_mesh(D, M, device="cpu")
+        m = ep.model.rank
+        lm = init_lm(cfg, device="cpu", experts=expert_range(cfg.n_experts, m, M))
+        p = load_jax_params(lm, expert_shard(tree, m, M)).blocks[0].moe
+        B = x.shape[0]
+        xs = torch.from_numpy(x[ep.data.rank * (B // D):(ep.data.rank + 1) * (B // D)])
+        with torch.no_grad():
+            out, aux = moe_apply_ep(cfg, p, xs, ep)
+        return (ep.data.rank, ep.model.rank, out.numpy(), float(aux),
+                ep.collective_report())
+
+    return {label: _guarded(run, cfg, tree, x, grid) for label, cfg, tree, x, grid in cases}
+
+
+def serve_ep(mesh, spec: dict) -> dict:
+    """``launch.serve_lm.serve_expert_parallel`` on one thread a rank."""
+    import torch
+
+    from repro_torch.launch.serve_lm import serve_expert_parallel
+
+    torch.set_num_threads(1)
+    return serve_expert_parallel(mesh, spec)
