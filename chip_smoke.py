@@ -66,8 +66,8 @@ Phases (any failed check raises, so the exit code is not 0):
    last-position logits and greedy tokens reproduced through the kernels;
 10. LM serving at full width — qwen1.5-0.5b and rwkv6-3b in bf16 with the
    port's seeded init: a prefill of 4 prompts of 1,024 tokens (one kernel
-   launch per layer) and greedy decode (the prompts' last 256 tokens walked
-   into the cache, then 32 generated, as in phases 18-19); each layer's attention
+   launch per layer) and greedy decode (the prompts' last 32 tokens walked
+   into the cache, then 16 generated, as in phases 18-19); each layer's attention
    or time-mix output with the kernel against the plain op computed in f64;
    the whole bf16 forward with the kernel against the plain one, held to the
    witness gap between the plain route and its f64 twin; in f32 the kernel
@@ -244,7 +244,7 @@ Phases (any failed check raises, so the exit code is not 0):
    prefill's and a decode step's shapes with CUDA's sync debug mode at
    "error" (no host sync); a prefill of 4 prompts of 1,024 tokens, exactly
    one tensor-core ``flash_attention`` launch per layer, and greedy decode
-   (the prompts' last 256 tokens walked into the cache, then 32 generated),
+   (the prompts' last 32 tokens walked into the cache, then 16 generated),
    which launches nothing; per layer, the attention output
    with the kernel against the plain op in f64, and the MoE layer's bf16
    output against the same op in f64 over the tokens whose routing agrees
@@ -266,8 +266,8 @@ Phases (any failed check raises, so the exit code is not 0):
    width in bf16 with the port's seeded init: ``flash_attention`` at its
    prefill shape against its plain version, SDPA (a boolean window mask) and
    its bound; a prefill of 4 prompts of 4,096 tokens, exactly one
-   tensor-core launch per attention layer, and greedy decode (the last 256
-   prompt tokens walked, 32 generated), which launches nothing; per
+   tensor-core launch per attention layer, and greedy decode (the last 32
+   prompt tokens walked, 16 generated), which launches nothing; per
    attention layer the output with the kernel against the plain op in f64;
    the whole bf16 forward held to the witness; the bf16 decode path's last
    prompt logits against a forward of the walked tokens; then one pattern
@@ -302,12 +302,12 @@ Phases (any failed check raises, so the exit code is not 0):
    step 1 on three routes (the kernel, blockwise attention in the same bf16
    model, blockwise in an f32 copy), the kernel's loss within one bf16 step
    of the blockwise one's and each attention weight's gradient nonzero and
-   no farther from the blockwise route's than twice the bf16-f32 gap; 16
+   no farther from the blockwise route's than twice the bf16-f32 gap; 4
    steps of 8 x 1,024 tokens through ``train_loop`` (48 tensor-core launches
    a step: 24 forward, 24 recompute), tok/s, the forward, backward and
-   optimizer ms a step and peak memory; 8 steps with a checkpoint, then a
-   run resumed from it to step 16 within 1e-3 of the uninterrupted losses;
-   (c) rwkv6-3b at full width, 4 of its 32 layers, 4 steps of 2 x 1,024
+   optimizer ms a step and peak memory; 2 steps with a checkpoint, then a
+   run resumed from it to step 4 within 1e-3 of the uninterrupted losses;
+   (c) rwkv6-3b at full width, 4 of its 32 layers, 2 steps of 2 x 1,024
    tokens (8 ``wkv6`` launches a step) with step 1's time-mix gradients held
    to the ``ref`` route the same way; (d) the plain backward's ms at those
    shapes (and SDPA's backward at qwen's, which the port never calls).  The
@@ -327,7 +327,7 @@ Phases (any failed check raises, so the exit code is not 0):
    exploring on the card.  The kernels
    line gives (b)'s launches as ``dryrun_launches``;
 22. expert parallelism (run after phase 21) — qwen3-moe-235b-a22b at full
-   width cut to 4 of 94 layers, bf16, cf = E/K (no assignment drops),
+   width cut to 2 of 94 layers, bf16, cf = E/K (no assignment drops),
    served by ``moe_apply_ep`` on 4 gloo ranks sharing the card (32 experts
    a layer each) and on a 1-rank NCCL group: a prefill of 4 x 1,024 tokens
    (one tensor-core ``flash_attention`` launch a layer a rank), its tok/s and
@@ -336,7 +336,24 @@ Phases (any failed check raises, so the exit code is not 0):
    M) bf16 half-steps), one layer in f32 against the one-process route
    within 1e-5, output and aux loss; the last logits' gap printed.  The
    kernels line gives the launches, summed over the ranks, as
-   ``ep_launches``.
+   ``ep_launches``;
+23. expert-parallel training (run after phase 22) — (a) qwen3-moe-235b-a22b's
+   layer at every width (128 experts top-8), 1 of 94 layers, vocab cut to
+   8,192, bf16, cf = E/K, 3 steps of 4 x 256 tokens through ``train_loop``
+   on a (1, 4) grid of gloo ranks sharing the card (32 experts a rank), held
+   to the one-process ``train_loop`` on the same seed: each step's loss and
+   grad norm, step 1's gradients, every parameter and AdamW's moments after
+   the steps (the expert banks at sampled experts, those a differing routing
+   touched left out of the moments and counted) within tolerances derived
+   beside ``EP_TRAIN_LOSS_TOL``; ``flash_attention`` against its plain
+   version at the path's shapes first; (b) the same on a 1-rank NCCL group,
+   equal to the one process bit for bit; (c) the smoke config in f32 on a (2, 2)
+   grid within 1e-5 of one process, and the grid's checkpoint at step 2
+   resumed in one process to the same next loss.  Two tensor-core
+   ``flash_attention`` launches a layer a step on each rank (the forward and
+   the remat recompute); tok/s, the parts' ms, the collectives' bytes and
+   ms by mesh and kind, and each rank's peak memory printed.  The kernels
+   line gives the launches, summed over the ranks, as ``ep_train_launches``.
 
 Kernel launch counts are zeroed just before each path runs and read just
 after it; ``flash_attention`` counts each variant on its own.  Times
@@ -3118,7 +3135,7 @@ WKV_TOL = 3e-4
 # the golden (f32 throughout, another summation order than JAX's on the CPU;
 # tests/test_torch_golden_lm.py holds the port to it on the CPU as well)
 GOLDEN_LM_TOL = 1e-4
-SERVE = dict(batch=4, prompt_len=1024, gen=32, seed=0)
+SERVE = dict(batch=4, prompt_len=1024, gen=16, seed=0)  # gen 32 -> 16 with DECODE_WALK
 # bf16 on the card, three routes through the same weights: "kernel" (the
 # port's default), "plain" (the JAX package's default: blockwise attention,
 # which rounds q.k to bf16 where the kernel keeps f32; wkv6_ref, the f32
@@ -3735,8 +3752,10 @@ DROP_DECODE_STEPS = 16
 # walk's length).
 # A step's cost does not depend on it (the cached attention reads under 0.1%
 # of a step's bytes); walking all 1,024 took 65 s for pixtral alone (61.6 ms a
-# host-bound step on an H100 80GB HBM3 at 700 W)
-DECODE_WALK = 256
+# host-bound step on an H100 80GB HBM3 at 700 W).  256 -> 32, and 32 -> 16
+# generated, to keep the smoke inside its limit on the slowest hosts seen
+# (the seven models' 288 decode steps took 70.8 s of a 937.7 s smoke)
+DECODE_WALK = 32
 
 
 def _attn_at(cfg, B, S, dev, seed, causal=True) -> dict:
@@ -4363,9 +4382,11 @@ TRAIN_CHANGE_TOL = 2e-3
 # qwen1.5-0.5b uncut (24 layers, d 1024, 16 heads of 64, vocab 151,936, bf16,
 # 0.62 B parameters) through train_loop: the uninterrupted run, then a run
 # to the checkpoint step and one resumed from it
-TRAIN_QWEN = dict(arch="qwen1.5-0.5b", batch=8, seq=1024, steps=16, resume_at=8, seed=0)
+# (4 steps, resumed at 2, and rwkv6's 2 steps: cut from 16, 8 and 4 to keep
+# the smoke inside its limit; every check and launch kind stays)
+TRAIN_QWEN = dict(arch="qwen1.5-0.5b", batch=8, seq=1024, steps=4, resume_at=2, seed=0)
 # rwkv6-3b at full width cut in depth (4 of its 32 layers), bf16
-TRAIN_RWKV = dict(arch="rwkv6-3b", layers=4, batch=2, seq=1024, steps=4, seed=0)
+TRAIN_RWKV = dict(arch="rwkv6-3b", layers=4, batch=2, seq=1024, steps=2, seed=0)
 # the resumed run's losses against the uninterrupted run's: the JAX example's
 # criterion (examples/train_lm.py)
 TRAIN_RESUME_DRIFT = 1e-3
@@ -4825,11 +4846,12 @@ def phase_dryrun(dev, solver_ranks: list) -> dict:
 
 # -- phase 22: expert parallelism on the card ---------------------------------------
 
-# qwen3-moe-235b-a22b at full width cut to EP_LAYERS of 94 layers (bf16:
-# 2.49 GB of embeddings + 4.97 GB a layer, 22.4 GB in one process; a rank of 4
-# holds 32 experts a layer, 7.9 GB), at cf = E/K so that no assignment drops on
-# either route; 4 prompts of 1,024 tokens
-EP_MODEL = dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, seq=1024, seed=0)
+# qwen3-moe-235b-a22b at full width cut to 2 of 94 layers (bf16: 2.49 GB of
+# embeddings + 4.97 GB a layer, 12.4 GB in one process; a rank of 4 holds 32
+# experts a layer, 5.2 GB), at cf = E/K so that no assignment drops on either
+# route; 4 prompts of 1,024 tokens.  4 -> 2 layers to keep the smoke inside its
+# limit (the 4-rank job, each rank drawing the whole banks, took 51.4 s)
+EP_MODEL = dict(arch="qwen3-moe-235b-a22b", layers=2, batch=4, seq=1024, seed=0)
 EP_RANKS = 4
 # bf16, fed the same layer input: the one-process route adds a token's K
 # products in ascending expert order, each add rounded to bf16; a rank adds
@@ -5011,6 +5033,606 @@ def phase_ep(dev) -> dict:
               f"(<= {EP_BF16_TOL:.4f}); f32 layer {gap32:.3g}, aux {aux_gap:.3g} (<= "
               f"{EP_F32_TOL}); last logits vs one process {logit_gap:.4g}; peak "
               f"{readings[ranks]['peak_gb']:.2f} GB a rank; job {job_s:.1f} s")
+    return {"launches": total, "readings": readings}
+
+
+# -- phase 23: expert-parallel training on the card ---------------------------------
+
+# qwen3-moe-235b-a22b's layer at every width (d 4096, 64/4 heads of 128, 128
+# experts top-8, d_ff 1536), cut to 1 of its 94 layers and its vocabulary from
+# 151,936 to 8,192, the one width cut: a parameter costs 20 B in a step (bf16
+# weight and gradient, f32 m and v, and the new m and v of the one-process
+# AdamW), so one layer at the full vocabulary (2,415.9 M expert + 71.3 M
+# attention + 0.5 M router + 1,244.6 M embedding parameters) needs 74.6 GB in
+# one process before AdamW's f32 temporaries, and 153.6 GB on four ranks
+# sharing the card; at 8,192 the one process needs ~51 GB and each of the four
+# ranks 32 experts (a rank's AdamW writes its moments in place: ~14 GB).  bf16,
+# cf = E/K (no assignment drops on either route), 4 x 256 tokens, 3 steps, on
+# a (1, 4) grid of gloo ranks sharing the card and on a 1-rank NCCL group
+EP_TRAIN = dict(arch="qwen3-moe-235b-a22b", layers=1, vocab=8192, batch=4, seq=256, steps=3,
+                seed=0, peak_lr=3e-4)
+EP_TRAIN_GRID = (1, 4)
+# (c) the data-parallel reductions: the smoke config in f32 on a (2, 2) grid,
+# at cf = E/K, 3 steps; a grid run to step 2 writes the checkpoint the parent
+# resumes in one process
+EP_TRAIN_SMOKE = dict(arch="qwen3-moe-235b-a22b", grid=(2, 2), batch=4, seq=16, steps=3,
+                      ckpt_at=2, seed=0, peak_lr=3e-4)
+EP_TRAIN_F32_TOL = 1e-5  # the CPU tests' tolerance against JAX and one process
+# (a) in bf16 the grid and the one process round differently: a token's K
+# expert products are added in bf16 per rank and the M partial sums once more
+# (phase 22's EP_BF16_TOL), and the input's gradient is the M ranks' parts
+# added in bf16.  The loss is an f32 mean of the CE over bf16 logits: within
+# one bf16 step, relative (phase 20's TRAIN_LOSS_BF16, kernel against plain).
+# The grad norm: each gradient element a sum whose K + M adds the routes round
+# apart, each off by at most half a bf16 step, so ||dg|| / ||g|| and the
+# norm's gap are within (K + M) half steps.  The parameters: in 3 steps AdamW
+# moves an element by at most sum(lr_t) (the normalised update is +-1 at the
+# first steps; the decay is the same on both routes), so the routes' elements
+# differ by at most one bf16 step of the element (2^-7 relative) from
+# rounding a moved value, plus 2 sum(lr_t) absolute: over a leaf of rms r,
+# 2^-7 + 2 sum(lr_t) / r relative (EP_TRAIN_LEAF_TOL).  The witness is (c):
+# the same reductions in f32 within EP_TRAIN_F32_TOL, and (b): one rank
+# equal bit for bit
+EP_TRAIN_LOSS_TOL = 2.0**-8
+EP_TRAIN_GNORM_TOL = (8 + EP_TRAIN_GRID[1]) * 2.0**-9
+# Step 1's gradients (every replicated leaf; each expert bank at the sampled
+# experts), from the same seeded init on both routes, which route every
+# token alike at step 1: each element a sum whose K + M adds the routes round
+# apart, so within (K + M) half steps, norm-wise and relative, like the norm
+EP_TRAIN_GRAD_TOL = EP_TRAIN_GNORM_TOL
+# AdamW's moments after the steps.  Step t feeds m and v the clipped gradient
+# s_t g_t, whose gap is within the gradient's and the clip scale's (the
+# norm's): eps = EP_TRAIN_GRAD_TOL + EP_TRAIN_GNORM_TOL (the parameters' gaps
+# after a step, EP_TRAIN_LEAF_TOL, add far less to later gradients).
+# sqrt(v) is a weighted l2 norm over the steps, so (Minkowski)
+# ||sqrt(v) - sqrt(v')|| <= eps ||sqrt(v')||; m is a weighted sum, and
+# (Cauchy-Schwarz against v's weights) ||m - m'|| <= c eps ||sqrt(v')||, with
+# c^2 = sum_t (1 - b1)^2 b1^(2(n - t)) / ((1 - b2) b2^(n - t)) (see
+# _ep_moment_tol).  After step 1 the parameters differ in their last bits, so
+# a token whose 8th and 9th router scores nearly tie may take another expert
+# on one route: the premise holds for an expert only where both routes gave
+# it the same tokens at every step.  Compared: every replicated leaf whole (a
+# moved assignment is one of B·S tokens' share of its gradient), and each
+# expert bank at the sampled experts (_ep_sampled_experts) that no moved
+# assignment touched; the moved ones are counted, and step 1 must move none.
+# On an H100 (80GB HBM3, 700 W): 22 and 28 experts touched at steps 2 and 3,
+# m and sqrt(v) gaps 0.0196 and 0.0294 on a touched expert, 0.00255 and
+# 0.00488 on the untouched ones, 0.0107 and 0.0163 on the router
+EP_TRAIN_MOMENT_EPS = EP_TRAIN_GRAD_TOL + EP_TRAIN_GNORM_TOL
+
+
+def _ep_train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_lm import cut_depth
+
+    cfg = cut_depth(get_config(EP_TRAIN["arch"]), EP_TRAIN["layers"])
+    return dataclasses.replace(cfg, vocab=EP_TRAIN["vocab"],
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def _ep_smoke_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(EP_TRAIN_SMOKE["arch"])
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def _ep_leaf_tol(want, steps: int) -> float:
+    """EP_TRAIN_LEAF_TOL for a reference leaf: 2^-7 + 2 sum(lr_t) / rms."""
+    lr = sum(EP_TRAIN["peak_lr"] * t / 100 for t in range(1, steps + 1))  # the warm-up's lr_t
+    rms = float(want.float().pow(2).mean().sqrt())
+    return 2.0**-7 + 2 * lr / max(rms, 1e-30)
+
+
+def _ep_moment_tol(steps: int, b1: float = 0.9, b2: float = 0.95) -> dict:
+    """The moments' limits after ``steps`` steps at ``adamw_update``'s
+    default betas, relative to ||sqrt(v)|| of the reference: m's c eps,
+    sqrt(v)'s eps (EP_TRAIN_MOMENT_EPS)."""
+    c2 = sum((1 - b1) ** 2 * b1 ** (2 * (steps - t)) / ((1 - b2) * b2 ** (steps - t))
+             for t in range(1, steps + 1))
+    return {"m": c2**0.5 * EP_TRAIN_MOMENT_EPS, "sqrt_v": EP_TRAIN_MOMENT_EPS}
+
+
+def _ep_sampled_experts(E: int, M: int) -> list:
+    """The experts whose gradients and moments phase 23 compares: the first
+    two and the last two of each of M model ranks' ranges."""
+    from repro_torch.models.moe import expert_range
+
+    ranges = [expert_range(E, m, M) for m in range(M)]
+    return sorted({e for lo, hi in ranges for e in (lo, lo + 1, hi - 2, hi - 1)})
+
+
+@contextlib.contextmanager
+def _routing_logged():
+    """Every routing of the MoE layers while inside (``models/moe.route``,
+    which both routes call, the forward and the remat recompute alike),
+    appended to the list yielded: each token's top-k experts (T, K),
+    sorted, on the device."""
+    import torch
+
+    from repro_torch.models import moe
+
+    log, route = [], moe.route
+
+    def logged(*args, **kw):
+        r = route(*args, **kw)
+        log.append(torch.sort(r["top_e"].detach(), dim=-1).values)
+        return r
+
+    moe.route = logged
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def _flipped_experts(got: list, want: list) -> list:
+    """[per routing call: the experts an assignment of some token moved
+    to or from], between two routes' logs of ``_routing_logged``."""
+    out = []
+    for a, b in zip(got, want, strict=True):
+        rows = (a != b).any(-1)
+        flip = set()
+        for x, y in zip(a[rows].tolist(), b[rows].tolist()):
+            flip |= set(x) ^ set(y)
+        out.append(sorted(flip))
+    return out
+
+
+def _ep_first_grads(cfg, dev, ep=None) -> dict:
+    """Step 1's gradients in ``train_loop``'s run of EP_TRAIN (the seeded
+    init, the first batch, the rank's rows), taken apart from it: the
+    launches count in no run.  -> {parameter name: gradient}."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import init_expert_parallel
+
+    r = EP_TRAIN
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(r["seed"])
+    params = model.init(gen, dev) if ep is None else init_expert_parallel(cfg, ep, gen, dev)
+    b = SyntheticTokens(vocab=cfg.vocab, seq_len=r["seq"] + 1, global_batch=r["batch"],
+                        seed=r["seed"]).next_batch(device=dev)
+    if ep is not None:
+        B, D, d = r["batch"], ep.data.size, ep.data.rank
+        b = {k: v[d * B // D:(d + 1) * B // D] for k, v in b.items()}
+    return value_and_grad(model, params, b)[1]
+
+
+def _attn_plain_gap(cfg, B: int, S: int, dtype, dev, seed: int, variant: str) -> float:
+    """flash_attention at a training path's shape (B, S, the config's heads,
+    causal over its window) against its plain version on the same inputs:
+    bf16 within one bf16 step an element (phase 8's rule), f32 within
+    ATTN_TOL.  Returns the max abs err."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import variant_for
+
+    c = dict(B=B, Sq=S, Sk=S, Hq=cfg.n_heads, Hkv=cfg.n_kv_heads, D=cfg.d_head, causal=True,
+             window=cfg.window)
+    q, k, v = _attn_inputs(c, dtype, dev, seed)
+    check(variant_for(q, k, v) == variant, f"{cfg.name} at {c}: not the {variant} variant")
+    kw = dict(causal=True, window=cfg.window)
+    got = flash_attention(q, k, v, **kw).float()
+    want = flash_attention_plain(q, k, v, **kw).float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if dtype == torch.bfloat16:
+        check(bool((diff <= 2.0**-7 * torch.maximum(got.abs(), want.abs()) + 1e-6).all()),
+              f"flash_attention at {c}: more than one bf16 step from the plain version ({err})")
+    else:
+        check(err < ATTN_TOL["float32"], f"flash_attention f32 at {c}: max abs err {err}")
+    return err
+
+
+def _ep_train_full(ep, spec: dict) -> dict:
+    """(a)/(b) on this rank: step 1's gradients apart, then ``train_loop``
+    over the grid (launches, peak, collectives, walls and the routings),
+    held to the one-process references written to ``spec["ref"]`` and
+    ``spec["ref_opt"]``: step 1's gradients, the parameters and AdamW's
+    moments after the steps (each one's gap and whether it is equal bit for
+    bit; the banks' gradients and moments at the sampled experts), then two
+    more steps for the readings: the parts' walls, and the collectives timed
+    by kind."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import counts
+    from repro_torch.launch.train import expert_leaves, train_loop, train_step
+    from repro_torch.models.moe import expert_range
+    from repro_torch.models.registry import get_model
+
+    r, dev = EP_TRAIN, ep.model.device
+    cfg = _ep_train_cfg()
+    t_compare = time.perf_counter()
+    ref = torch.load(spec["ref_opt"], mmap=True, map_location="cpu", weights_only=True)
+    lo, hi = expert_range(cfg.n_experts, ep.model.rank, ep.model.size)
+    # a bank's sampled experts in this rank's range: its rows, the reference's
+    mine = [e - lo for e in ref["sample"] if lo <= e < hi]
+    theirs = [i for i, e in enumerate(ref["sample"]) if lo <= e < hi]
+
+    def pair(got, want, k):
+        return (got[mine], want[theirs].to(dev)) if k in ref["banks"] else (got, want.to(dev))
+
+    grads = {}
+    for k, g in _ep_first_grads(cfg, dev, ep).items():
+        got, want = pair(g, ref["grads"][k], k)
+        grads[k] = {"gap": _rel(got, want), "equal": bool(torch.equal(got, want))}
+    del got, want, g
+    compare_s = time.perf_counter() - t_compare
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts.reset()
+    ep.reset_collectives()
+    gnorms = []
+    t = time.perf_counter()
+    with _routing_logged() as routes:
+        params, opt, losses = train_loop(cfg, steps=r["steps"], batch=r["batch"],
+                                         seq=r["seq"], seed=r["seed"], peak_lr=r["peak_lr"],
+                                         ep=ep, gnorms=gnorms, log_every=10**9)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    launches = counts.snapshot()
+    coll = ep.collective_report()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    t_compare = time.perf_counter()
+    ref.update(torch.load(spec["ref"], mmap=True, map_location="cpu", weights_only=True))
+    shards = expert_leaves(params)
+    check(shards == set(ref["banks"]), f"phase 23: banks {shards} vs {ref['banks']}")
+    leaves = {}
+    for k, p in params.named_parameters():
+        want = (ref["params"][k][lo:hi] if k in shards else ref["params"][k]).to(dev)
+        got = p.detach()
+        leaves[k] = {"gap": _rel(got, want), "tol": _ep_leaf_tol(want, r["steps"]),
+                     "equal": bool(torch.equal(got, want))}
+        del want
+    # the moments: each replicated leaf whole, each bank at the sampled
+    # experts in this rank's range that no moved assignment touched; gaps
+    # over ||sqrt(v)|| of the reference
+    flips = _flipped_experts([x.cpu() for x in routes], ref["routes"])
+    moved = set().union(*flips)
+    mine = [e - lo for e in ref["sample"] if lo <= e < hi and e not in moved]
+    theirs = [i for i, e in enumerate(ref["sample"]) if lo <= e < hi and e not in moved]
+    moments = {}
+    for k in ref["v"]:
+        got_m, want_m = pair(opt.m[k], ref["m"][k], k)
+        got_v, want_v = pair(opt.v[k], ref["v"][k], k)
+        scale = float(want_v.sqrt().norm())
+        gaps = (float((got_m - want_m).norm()), float((got_v.sqrt() - want_v.sqrt()).norm()))
+        rel = [g / scale if scale else (0.0 if g == 0 else float("inf")) for g in gaps]
+        moments[k] = {"m": rel[0], "sqrt_v": rel[1],
+                      "equal": bool(torch.equal(got_m, want_m) and torch.equal(got_v, want_v))}
+        del got_m, got_v, want_m, want_v
+    del ref
+    compare_s += time.perf_counter() - t_compare
+
+    # two more steps, for the readings: the parts' walls (synchronised between
+    # the parts), then the collectives timed (a sync around each); each starts
+    # from a barrier, so no rank's wall holds its wait for a slower one
+    import torch.distributed as dist
+
+    def start():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    model = get_model(cfg)
+    pipe = SyntheticTokens(vocab=cfg.vocab, seq_len=r["seq"] + 1, global_batch=r["batch"],
+                           seed=r["seed"])
+    pipe.restore({"step": r["steps"]})
+    B, D, d = r["batch"], ep.data.size, ep.data.rank
+    rows = slice(d * B // D, (d + 1) * B // D)
+    times = {}
+    ep.reset_collectives()
+    b = {k: v[rows] for k, v in pipe.next_batch(device=dev).items()}
+    start()
+    t = time.perf_counter()
+    opt, _, _ = train_step(model, params, opt, b, peak_lr=r["peak_lr"], total_steps=r["steps"],
+                           times=times)
+    step_s = time.perf_counter() - t
+    step_coll = ep.collective_report()
+    b = {k: v[rows] for k, v in pipe.next_batch(device=dev).items()}
+    ep.set_timing(True)
+    ep.reset_collectives()
+    start()
+    t = time.perf_counter()
+    train_step(model, params, opt, b, peak_lr=r["peak_lr"], total_steps=r["steps"])
+    timed_s = time.perf_counter() - t
+    coll_ms = ep.collective_ms()
+    ep.set_timing(False)
+    del params, opt, model
+    torch.cuda.empty_cache()
+    return {"backend": ep.model.backend, "data_rank": d, "model_rank": ep.model.rank,
+            "losses": losses, "gnorms": gnorms, "wall_s": wall, "launches": launches,
+            "collectives": coll, "peak_b": peak, "leaves": leaves, "grads": grads,
+            "moments": moments, "flips": flips, "compared_experts": [e + lo for e in mine],
+            "banks": sorted(shards), "compare_s": compare_s,
+            "parts_ms": times,
+            "step_s": step_s, "step_collectives": step_coll, "timed_s": timed_s,
+            "coll_ms": coll_ms}
+
+
+def _ep_train_smoke(ep, spec: dict) -> dict:
+    """(c) on this rank: the smoke config in f32 on the (2, 2) grid, 3 steps
+    uninterrupted, then a run to step 2 that writes the checkpoint
+    ``spec["ckpt"]``.  -> the losses, norms, launches and the parameters
+    after the 3 steps (numpy: a tensor would cross processes by a file
+    descriptor that dies with this rank)."""
+    from repro_torch.kernels import counts
+    from repro_torch.launch.train import expert_leaves, train_loop
+
+    r = EP_TRAIN_SMOKE
+    cfg = _ep_smoke_cfg()
+    kw = dict(batch=r["batch"], seq=r["seq"], seed=r["seed"], peak_lr=r["peak_lr"], ep=ep,
+              log_every=10**9)
+    counts.reset()
+    gnorms = []
+    params, _, losses = train_loop(cfg, steps=r["steps"], gnorms=gnorms, **kw)
+    launches = counts.snapshot()
+    shards = expert_leaves(params)
+    leaves = {k: (k in shards, p.detach().cpu().numpy()) for k, p in params.named_parameters()}
+    _, _, written = train_loop(cfg, steps=r["ckpt_at"], ckpt_dir=spec["ckpt"],
+                               ckpt_every=10**9, **kw)
+    return {"data_rank": ep.data.rank, "model_rank": ep.model.rank, "losses": losses,
+            "gnorms": gnorms, "written": written, "launches": launches, "leaves": leaves}
+
+
+def _ep_train_rank(mesh, spec: dict) -> dict:
+    """A rank of phase 23: (a) on the (1, M) grid of the job (or (b) on
+    one rank), then, on four ranks, (c) on a (2, 2) grid."""
+    from repro_torch.launch.mesh import make_expert_mesh
+
+    out = {"full": _ep_train_full(make_expert_mesh(1, mesh.size, device=mesh.device), spec)}
+    if mesh.size == 4:
+        out["smoke"] = _ep_train_smoke(make_expert_mesh(*EP_TRAIN_SMOKE["grid"],
+                                                         device=mesh.device), spec)
+    return out
+
+
+def phase_ep_train(dev) -> dict:
+    """Phase 23: expert-parallel training.  (a) qwen3-moe-235b-a22b's layer at
+    every width on a (1, 4) grid of gloo ranks sharing the card, against the
+    one-process ``train_loop`` on the same seed (EP_TRAIN_*_TOL); (b) the same
+    on a 1-rank NCCL group, equal to the one process bit for bit; (c) the
+    smoke config in f32 on a (2, 2) grid within EP_TRAIN_F32_TOL of one
+    process, and its checkpoint resumed in one process.  Returns the
+    flash_attention launches of the grid's runs, summed over the ranks, and
+    the readings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.launch.train import TRAIN_LIBRARIES, expert_leaves, train_loop
+    from repro_torch.models.registry import get_model
+
+    r, sm = EP_TRAIN, EP_TRAIN_SMOKE
+    cfg = _ep_train_cfg()
+    M = EP_TRAIN_GRID[1]
+    print(f"[smoke] phase 23: {cfg.name} training expert-parallel, its layer at every width (d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.d_head}, {cfg.n_experts} "
+          f"experts top-{cfg.top_k}, d_ff {cfg.d_ff}), cut to {r['layers']} of 94 layers and "
+          f"vocab 151,936 -> {r['vocab']} (the one width cut: 20 B a parameter in a step, one "
+          f"layer at the full vocabulary 74.6 GB in one process, 153.6 GB on 4 ranks), bf16, "
+          f"cf = E/K, {r['batch']} x {r['seq']} tokens, {r['steps']} steps; (1, {M}) grid of "
+          f"gloo ranks sharing the card ({cfg.n_experts // M} experts a rank), a 1-rank NCCL "
+          f"group, and the smoke config in f32 on a {sm['grid']} grid", flush=True)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ep_train_")
+    try:
+        # the kernel against its plain version at the shapes this path gives
+        # it: (a)/(b) a rank's whole batch in bf16 on the tensor cores, (c) a
+        # data rank's rows and the one process's in f32 on the CUDA cores
+        smoke_cfg = _ep_smoke_cfg()
+        attn_err = {"bf16": _attn_plain_gap(cfg, r["batch"], r["seq"], torch.bfloat16, dev, 2300,
+                                            "tensor_core")}
+        for b in (sm["batch"] // sm["grid"][0], sm["batch"]):
+            attn_err[f"f32 B {b}"] = _attn_plain_gap(smoke_cfg, b, sm["seq"], torch.float32, dev,
+                                                      2301 + b, "cuda_core")
+        print(f"[smoke] phase 23 flash_attention == plain version at the path's shapes (bf16 "
+              f"within one bf16 step, f32 within {ATTN_TOL['float32']}): max abs err {attn_err}",
+              flush=True)
+        # the one-process reference of (a) and (b): step 1's gradients apart,
+        # then the run; of each expert bank the sampled experts are kept
+        sample = _ep_sampled_experts(cfg.n_experts, M)
+        banks = expert_leaves(get_model(cfg).init(device="meta"))
+        cut = lambda t, k: (t[sample] if k in banks else t).cpu()  # noqa: E731
+        ref_grads = {k: cut(g, k) for k, g in _ep_first_grads(cfg, dev).items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        times, gnorms = {}, []
+        t = time.perf_counter()
+        with _routing_logged() as routes:
+            params, opt, losses = train_loop(cfg, steps=r["steps"], batch=r["batch"],
+                                             seq=r["seq"], seed=r["seed"], peak_lr=r["peak_lr"],
+                                             device=dev, times=times, gnorms=gnorms,
+                                             log_every=10**9)
+        one_s = time.perf_counter() - t
+        one_launches = counts.snapshot()
+        one_peak = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        ref, ref_opt = os.path.join(tmp, "reference.pt"), os.path.join(tmp, "reference_opt.pt")
+        torch.save({"params": {k: p.detach().cpu() for k, p in params.named_parameters()}}, ref)
+        torch.save({"grads": ref_grads, "sample": sample, "banks": sorted(banks),
+                    "routes": [x.cpu() for x in routes],
+                    "m": {k: cut(t, k) for k, t in opt.m.items()},
+                    "v": {k: cut(t, k) for k, t in opt.v.items()}}, ref_opt)
+        del ref_grads
+        ref_s = time.perf_counter() - t
+        n_params = sum(p.numel() for p in params.parameters())
+        del params, opt  # the ranks need the card's memory
+        torch.cuda.empty_cache()
+        check(one_launches == {"flash_attention.tensor_core": 2 * r["layers"] * r["steps"]},
+              f"phase 23 one process launched {one_launches}")
+        print(f"[smoke] EP train one process ({n_params} params, bf16): {r['steps']} steps in "
+              f"{one_s:.3f} s (parts over the steps, the first step's warm-up included: "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in times.items())}), peak "
+              f"{one_peak / 1e9:.2f} GB; launches {one_launches}; the references written in "
+              f"{ref_s:.1f} s", flush=True)
+        # the one-process reference of (c)
+        smoke_kw = dict(batch=sm["batch"], seq=sm["seq"], seed=sm["seed"],
+                        peak_lr=sm["peak_lr"], device=dev, log_every=10**9)
+        smoke_gnorms = []
+        smoke_params, smoke_opt, smoke_losses = train_loop(smoke_cfg, steps=sm["steps"],
+                                                           gnorms=smoke_gnorms, **smoke_kw)
+        smoke_want = {k: p.detach().cpu().numpy() for k, p in smoke_params.named_parameters()}
+        del smoke_params, smoke_opt
+        torch.cuda.empty_cache()
+
+        spec = {"ref": ref, "ref_opt": ref_opt, "ckpt": os.path.join(tmp, "grid_ckpt")}
+        moment_tol = _ep_moment_tol(r["steps"])
+        readings, total = {}, {}
+        for ranks in (M, 1):
+            t = time.perf_counter()
+            out = spawn_mesh(_ep_train_rank, ranks, timeout_s=MESH_TIMEOUT_S, args=(spec,),
+                             libraries=TRAIN_LIBRARIES)
+            job_s = time.perf_counter() - t
+            full = [o["full"] for o in out]
+            backend = "gloo" if ranks > 1 else "nccl"
+            label = f"EP train on {ranks} {backend} rank(s)"
+            check(all(f["backend"] == backend for f in full), f"{label}: backends "
+                  f"{[f['backend'] for f in full]}")
+            for f in full:
+                check(f["launches"] == one_launches, f"{label}: a rank launched {f['launches']}")
+                for k, v in f["launches"].items():
+                    total[k] = total.get(k, 0) + v
+                check(f["losses"] == full[0]["losses"] and f["gnorms"] == full[0]["gnorms"],
+                      f"{label}: the ranks' losses or norms differ")
+            f0 = full[0]
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(f0["losses"], losses))
+            gnorm_gap = max(abs(a - b) / abs(b) for a, b in zip(f0["gnorms"], gnorms))
+            leaf_gaps = {k: v["gap"] for f in full for k, v in f["leaves"].items()}
+            over = {f"{f['model_rank']}:{k}": (v["gap"], v["tol"]) for f in full
+                    for k, v in f["leaves"].items() if not v["gap"] <= v["tol"]}
+            over.update({f"{f['model_rank']}:grad {k}": (v["gap"], EP_TRAIN_GRAD_TOL)
+                         for f in full for k, v in f["grads"].items()
+                         if not v["gap"] <= EP_TRAIN_GRAD_TOL})
+            over.update({f"{f['model_rank']}:{w} {k}": (v[w], moment_tol[w]) for f in full
+                         for k, v in f["moments"].items() for w in moment_tol
+                         if not v[w] <= moment_tol[w]})
+            per_step = 2 * r["layers"]  # routings a step: the forward and the recompute
+            moved = [sorted(set().union(*f0["flips"][i:i + per_step]))
+                     for i in range(0, len(f0["flips"]), per_step)]
+            check(all(f["flips"] == f0["flips"] for f in full) and not moved[0]
+                  and all(f["compared_experts"] for f in full),
+                  f"{label}: experts moved by differing routings {[f['flips'] for f in full]} "
+                  f"(none at step 1), compared {[f['compared_experts'] for f in full]}")
+            worst = lambda part, w, banks=None: max(  # noqa: E731
+                (v[w], f"{f['model_rank']}:{k}") for f in full for k, v in f[part].items()
+                if banks is None or (k in expert_names) == banks)
+            expert_names = set(f0["banks"])
+            grad_gap = worst("grads", "gap")
+            moment_gap = {w: worst("moments", w) for w in moment_tol}
+            bank_gap = {w: worst("moments", w, True) for w in moment_tol}
+            if ranks == 1:  # the same adds in the same order: bit for bit
+                unequal = [k for part in ("leaves", "grads", "moments")
+                           for k, v in f0[part].items() if not v["equal"]]
+                check(f0["losses"] == losses and f0["gnorms"] == gnorms and not unequal
+                      and not any(moved),
+                      f"{label}: not bit for bit the one process: losses {f0['losses']} vs "
+                      f"{losses}, norms {f0['gnorms']} vs {gnorms}, leaves, step 1's "
+                      f"gradients or moments {unequal}")
+            else:
+                check(loss_gap <= EP_TRAIN_LOSS_TOL and gnorm_gap <= EP_TRAIN_GNORM_TOL
+                      and not over, f"{label}: loss gap {loss_gap} (<= {EP_TRAIN_LOSS_TOL}), "
+                      f"norm gap {gnorm_gap} (<= {EP_TRAIN_GNORM_TOL}), leaves, step 1's "
+                      f"gradients and moments over their tolerance {over}")
+            check(all(np.isfinite(f0["losses"])), f"{label}: losses {f0['losses']}")
+            tokens = r["batch"] * r["seq"]
+            step_s = max(f["step_s"] for f in full)
+            parts = {k: max(f["parts_ms"][k] for f in full) for k in f0["parts_ms"]}
+            coll_ms = {m: {k: max(f["coll_ms"][m].get(k, 0.0) for f in full)
+                           for k in f0["coll_ms"][m]} for m in f0["coll_ms"]}
+            sc = f0["step_collectives"]
+            peak_gb = [f["peak_b"] / 1e9 for f in full]
+            readings[ranks] = dict(
+                tok_s=tokens / step_s, step_ms=step_s * 1e3, parts_ms=parts,
+                loss_gap=loss_gap, gnorm_gap=gnorm_gap, max_leaf_gap=max(leaf_gaps.values()),
+                grad_gap=grad_gap, moment_gap=moment_gap, bank_moment_gap=bank_gap,
+                moved_experts=moved,
+                coll_ms=coll_ms, coll_step=sc, timed_step_ms=max(f["timed_s"] for f in full) * 1e3,
+                peak_gb=peak_gb, job_s=job_s, train_loop_s=max(f["wall_s"] for f in full))
+            print(f"[smoke] {label} sharing the card ({nvidia_smi()}): losses "
+                  f"{[f'{x:.6f}' for x in f0['losses']]} (one process "
+                  f"{[f'{x:.6f}' for x in losses]}: gap {loss_gap:.3g}), grad norms "
+                  f"{[f'{x:.6f}' for x in f0['gnorms']]} (gap {gnorm_gap:.3g}); leaves after "
+                  f"{r['steps']} steps: largest gap {max(leaf_gaps.values()):.3g}"
+                  + (", every leaf equal bit for bit" if ranks == 1 else
+                     f" (each under its 2^-7 + 2 sum(lr) / rms)")
+                  + f"; step 1's gradients (the banks at experts "
+                  f"{_ep_sampled_experts(cfg.n_experts, M)}): largest gap {grad_gap[0]:.3g} "
+                  f"({grad_gap[1]}); experts an assignment moved to or from, by step: {moved}; "
+                  f"AdamW's moments over ||sqrt(v)|| (the banks at experts "
+                  f"{sorted(e for f in full for e in f['compared_experts'])}): m "
+                  f"{moment_gap['m'][0]:.3g} ({moment_gap['m'][1]}), sqrt(v) "
+                  f"{moment_gap['sqrt_v'][0]:.3g} ({moment_gap['sqrt_v'][1]}); the banks' "
+                  f"largest m {bank_gap['m'][0]:.3g}, sqrt(v) {bank_gap['sqrt_v'][0]:.3g}; "
+                  f"the comparisons on a rank {max(f['compare_s'] for f in full):.1f} s"
+                  + (" (every one equal bit for bit)" if ranks == 1 else
+                     f" (<= {EP_TRAIN_GRAD_TOL:.4g}, {moment_tol['m']:.4g}, "
+                     f"{moment_tol['sqrt_v']:.4g})")
+                  + f"; a step {step_s * 1e3:.3f} ms, {tokens / step_s:.1f} tok/s (parts, "
+                  f"device synchronised between them: "
+                  f"{', '.join(f'{k} {v:.3f}' for k, v in parts.items())}); collectives a step "
+                  f"{sc['total']} B {sc['counts']} ({', '.join(f'{k} {v} B' for k, v in sc.items() if k not in ('total', 'counts') and v)}), "
+                  f"timed by mesh and kind (a sync around each, the step "
+                  f"{readings[ranks]['timed_step_ms']:.3f} ms): {coll_ms}; peak memory a rank "
+                  f"{[f'{x:.2f}' for x in peak_gb]} GB (sum {sum(peak_gb):.2f}); flash_attention "
+                  f"{f0['launches']} a rank in the {r['steps']} steps; train_loop "
+                  f"{readings[ranks]['train_loop_s']:.3f} s; job {job_s:.1f} s", flush=True)
+            if ranks > 1:
+                smoke = [o["smoke"] for o in out]
+
+        # (c): the data-parallel reductions in f32, and the grid's checkpoint
+        # resumed in one process
+        s0 = smoke[0]
+        for s in smoke:
+            check(s["losses"] == s0["losses"] and s["gnorms"] == s0["gnorms"],
+                  "EP train (c): the ranks' losses or norms differ")
+            check(s["launches"] == {"flash_attention.cuda_core": 2 * smoke_cfg.n_layers
+                                    * sm["steps"]}, f"EP train (c): launched {s['launches']}")
+            for k, v in s["launches"].items():
+                total[k] = total.get(k, 0) + v
+        c_loss = max(abs(a - b) / abs(b) for a, b in zip(s0["losses"], smoke_losses))
+        c_gnorm = max(abs(a - b) / abs(b) for a, b in zip(s0["gnorms"], smoke_gnorms))
+        E = smoke_cfg.n_experts
+        M2 = sm["grid"][1]
+        c_leaf = 0.0
+        for s in smoke:
+            for k, (sharded, got) in s["leaves"].items():
+                want = smoke_want[k]
+                if sharded:
+                    per = E // M2
+                    want = want[s["model_rank"] * per:(s["model_rank"] + 1) * per]
+                c_leaf = max(c_leaf, float(np.abs(got - want).max() / np.abs(want).max()))
+        _, _, resumed = train_loop(smoke_cfg, steps=sm["steps"], ckpt_dir=spec["ckpt"],
+                                   resume=True, ckpt_every=10**9, **smoke_kw)
+        c_resume = abs(resumed[0] - smoke_losses[-1]) / abs(smoke_losses[-1])
+        c_written = max(abs(a - b) / abs(b) for a, b in zip(s0["written"],
+                                                             smoke_losses[:sm["ckpt_at"]]))
+        check(max(c_loss, c_gnorm, c_leaf, c_resume, c_written) <= EP_TRAIN_F32_TOL
+              and len(resumed) == sm["steps"] - sm["ckpt_at"],
+              f"EP train (c): gaps loss {c_loss}, norm {c_gnorm}, leaves {c_leaf}, resumed "
+              f"{c_resume}, written {c_written} (<= {EP_TRAIN_F32_TOL})")
+        readings["smoke"] = dict(loss_gap=c_loss, gnorm_gap=c_gnorm, leaf_gap=c_leaf,
+                                 resume_gap=c_resume)
+        print(f"[smoke] EP train (c) {smoke_cfg.name} smoke, f32, on a {sm['grid']} grid of gloo "
+              f"ranks with CUDA tensors: {sm['steps']} steps, gaps to one process: loss "
+              f"{c_loss:.3g}, grad norm {c_gnorm:.3g}, leaves {c_leaf:.3g}; the grid's checkpoint "
+              f"at step {sm['ckpt_at']} resumed in one process: next loss {resumed[0]:.6f} vs "
+              f"{smoke_losses[-1]:.6f} uninterrupted (gap {c_resume:.3g}; <= {EP_TRAIN_F32_TOL}); "
+              f"flash_attention {s0['launches']} a rank", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    readings["attention_max_abs_err"] = attn_err
     return {"launches": total, "readings": readings}
 
 
@@ -5234,8 +5856,9 @@ def main() -> None:
     }
     attn["train_path"] = (
         "train_loop: golden_train.json's f32 smoke configs (4 steps each, CUDA-core variant), "
-        "qwen1.5-0.5b uncut in bf16 (16 steps of 8 x 1,024 tokens, 24 forward and 24 "
-        "recompute launches a step) and its resume from step 8, phase 20")
+        f"qwen1.5-0.5b uncut in bf16 ({TRAIN_QWEN['steps']} steps of 8 x 1,024 tokens, 24 "
+        f"forward and 24 recompute launches a step) and its resume from step "
+        f"{TRAIN_QWEN['resume_at']}, phase 20")
     attn["train_shape"] = trained["backward"]["flash_attention"]
     check(sum(attn["train_launches"][TRAIN_QWEN["arch"]].values()) > 0,
           "the training path launched no flash_attention kernel")
@@ -5245,8 +5868,8 @@ def main() -> None:
     }
     kernels["wkv6"]["train_path"] = (
         "train_loop: golden_train.json's rwkv6 smoke config (4 steps) and rwkv6-3b at full "
-        "width, 4 of 32 layers, bf16 (4 steps of 2 x 1,024 tokens, 4 forward and 4 recompute "
-        "launches a step), phase 20")
+        f"width, 4 of 32 layers, bf16 ({TRAIN_RWKV['steps']} steps of 2 x 1,024 tokens, 4 "
+        f"forward and 4 recompute launches a step), phase 20")
     kernels["wkv6"]["train_shape"] = trained["backward"]["wkv6"]
     check(sum(trained["rwkv"]["launches"].values()) > 0, "the training path launched no wkv6")
 
@@ -5268,6 +5891,21 @@ def main() -> None:
         "the card and a 1-rank NCCL group, summed over the ranks, phase 22")
     check(sum(ep["launches"].values()) == (EP_RANKS + 1) * EP_MODEL["layers"],
           f"phase 22 launched {ep['launches']}")
+
+    # phase 23: expert-parallel training, the attention kernel's sixth path
+    # (each rank's forward and remat recompute)
+    ep_train = timed("ep_train", phase_ep_train, dev)
+    attn["ep_train_launches"] = ep_train["launches"]
+    attn["ep_train_path"] = (
+        f"expert-parallel training of qwen3-moe-235b-a22b ({EP_TRAIN['layers']} of 94 layers, "
+        f"every width, vocab {EP_TRAIN['vocab']}, {EP_TRAIN['steps']} steps of "
+        f"{EP_TRAIN['batch']} x {EP_TRAIN['seq']} tokens, bf16, a forward and a recompute launch "
+        f"a layer a step on each rank) on {EP_TRAIN_GRID[1]} gloo ranks and a 1-rank NCCL "
+        f"group, and the f32 smoke config on a (2, 2) grid (CUDA-core), summed over the ranks, "
+        f"phase 23")
+    want = 2 * EP_TRAIN["layers"] * EP_TRAIN["steps"] * (EP_TRAIN_GRID[1] + 1)
+    check(ep_train["launches"].get("flash_attention.tensor_core") == want,
+          f"phase 23 launched {ep_train['launches']}, want {want} tensor-core")
 
     print(f"[smoke] phase walls (s): {walls}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

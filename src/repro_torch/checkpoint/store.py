@@ -157,7 +157,9 @@ def _leaves(tree, path=()):
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu()
+        # a copy even of a CPU tensor: a training step updates its state in
+        # place while an asynchronous save still writes the snapshot
+        leaf = leaf.detach().to("cpu", copy=True)
         if leaf.dtype == torch.bfloat16:  # raw bits, as JAX's savez writes them
             return leaf.view(torch.int16).numpy().view("V2")
         return leaf.numpy()

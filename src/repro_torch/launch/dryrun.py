@@ -35,13 +35,14 @@ here on one card: most do not fit, and the report says so.
 Out of scope (the port has no compiler IR and one card): the HLO
 collective parse, XLA's ``memory_analysis``, the production mesh
 (``--mesh``) and the sharding-rule overrides (``--set``).  ``--moe-impl
-shard_map --expert-ranks M`` sizes one rank of the expert-parallel serving
-route (:func:`repro_torch.models.moe.moe_apply_ep`) in an MoE arch's
-``prefill`` and ``decode`` cells: its E/M experts, its collectives counted
-by a stand-in that issues none.  As in JAX, where it is a rule override,
-an arch without experts ignores it (its one-card cell).  Training through
-that route is not ported (ROADMAP), so an MoE ``train`` cell under it is a
-SKIP with that reason.
+shard_map --expert-ranks M`` sizes one rank of the expert-parallel route
+(:func:`repro_torch.models.moe.moe_apply_ep`) on a (1, M) grid in an MoE
+arch's cells: its E/M experts, its collectives counted by a stand-in that
+issues none.  A ``train`` cell counts the expert-parallel ``train_step``:
+the forward's collectives, the remat recompute's, the backward's (the
+input's and the router's sums over the model ranks) and the global norm's
+sum of the expert shards' squares.  As in JAX, where it is a rule override,
+an arch without experts ignores it (its one-card cell).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
@@ -94,8 +95,6 @@ SKIP = {
     ("qwen3-moe-235b-a22b", "long_500k"): "full attention",
 }
 
-EP_TRAIN_SKIP = ("--moe-impl shard_map: the expert-parallel route serves only; training "
-                 "through it needs autograd-aware collectives (ROADMAP)")
 BYTES_NOTE = ("sum of every aten op's input and output bytes, views excluded, a kernel's "
               "meta route its own inputs and outputs once: an upper bound, no fusion")
 
@@ -241,9 +240,6 @@ def run_cell(arch, shape, *, expert_ranks: int = 0) -> dict:
                 "reason": SKIP[(cfg.name, shape.name)]}
     if not cfg.is_moe:
         expert_ranks = 0  # JAX's rule override: nothing to shard without experts
-    if expert_ranks and shape.kind == "train":
-        return {"arch": cfg.name, "shape": shape.name, "status": "SKIP",
-                "reason": EP_TRAIN_SKIP}
     model = get_model(cfg)
     t0 = time.time()
     step, args, group = build_cell(model, shape, expert_ranks=expert_ranks)

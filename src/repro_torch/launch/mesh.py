@@ -58,9 +58,9 @@ class SolverMesh:
     kind (``"all-gather"``, ``"all-reduce"``), the convention of
     :func:`repro_torch.launch.analysis.collective_bytes`
     (``collective_report``).  With ``timing`` on, each is bracketed by
-    device synchronisations and its host wall adds to ``collective_s`` (so
-    the work queued before it is not counted as its time); off, a
-    collective costs no extra sync."""
+    device synchronisations and its host wall adds to ``collective_s`` and
+    to its kind's in ``coll_s`` (so the work queued before it is not
+    counted as its time); off, a collective costs no extra sync."""
 
     rank: int
     size: int
@@ -72,6 +72,7 @@ class SolverMesh:
     collective_s: float = 0.0
     coll_bytes: dict = dataclasses.field(default_factory=dict)
     coll_counts: dict = dataclasses.field(default_factory=dict)
+    coll_s: dict = dataclasses.field(default_factory=dict)
 
     def _count(self, kind: str, result: torch.Tensor) -> None:
         nbytes = result.numel() * result.element_size()
@@ -87,8 +88,9 @@ class SolverMesh:
         self.collectives, self.collective_s = 0, 0.0
         self.coll_bytes.clear()
         self.coll_counts.clear()
+        self.coll_s.clear()
 
-    def _call(self, fn) -> None:
+    def _call(self, fn, kind: str) -> None:
         self.collectives += 1
         if not self.timing:
             fn()
@@ -98,7 +100,9 @@ class SolverMesh:
         t = time.perf_counter()
         fn()
         sync()
-        self.collective_s += time.perf_counter() - t
+        dt = time.perf_counter() - t
+        self.collective_s += dt
+        self.coll_s[kind] = self.coll_s.get(kind, 0.0) + dt
 
     def all_gather(self, block: torch.Tensor) -> torch.Tensor:
         """Every rank's ``block`` (1, ...) concatenated in rank order:
@@ -109,13 +113,14 @@ class SolverMesh:
         block = block.contiguous()
         out = block.new_empty((self.size * block.shape[0], *block.shape[1:]))
         self._count("all-gather", out)
-        self._call(lambda: dist.all_gather_into_tensor(out, block, group=self.group))
+        self._call(lambda: dist.all_gather_into_tensor(out, block, group=self.group),
+                   "all-gather")
         return out
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         out = t.clone()
         self._count("all-reduce", out)
-        self._call(lambda: dist.all_reduce(out, op=op, group=self.group))
+        self._call(lambda: dist.all_reduce(out, op=op, group=self.group), "all-reduce")
         return out
 
     def all_min(self, t: torch.Tensor) -> torch.Tensor:
@@ -135,7 +140,39 @@ class SolverMesh:
         return self.all_sum(t) / self.size
 
     def barrier(self) -> None:
-        self._call(lambda: dist.barrier(group=self.group))
+        self._call(lambda: dist.barrier(group=self.group), "barrier")
+
+    # the collectives under autograd, with JAX's transposes (expert-parallel
+    # training): each rank differentiates its own copy of the loss, so a
+    # cotangent that every rank holds equal stays where it is, and one that
+    # each rank holds a part of is summed
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """JAX's ``psum`` of a value each rank holds a part of: the sum
+        forward; backward the result's cotangent, equal on every rank, taken
+        as is (no collective)."""
+        return _Psum.apply(t, self, False)
+
+    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+        """JAX's ``pmean`` over ranks that each differentiate their own
+        share of a mean loss (expert parallelism's data ranks): the mean
+        forward; backward the cotangent as is.  Every rank's loss carries the
+        result with the same weight and the ranks' gradients are averaged
+        afterwards, so each rank's own term needs no scaling."""
+        return _Psum.apply(t, self, True)
+
+    def pvary(self, t: torch.Tensor) -> torch.Tensor:
+        """A value every rank holds whole, entering work that each rank does
+        a part of (JAX's replicated ``in_spec``, or its gathered operand):
+        the identity forward; backward the sum of the ranks' cotangents."""
+        return _Pvary.apply(t, self)
+
+    def invariant(self, t: torch.Tensor) -> torch.Tensor:
+        """JAX's ``pmean`` of a value every rank computes equal: the value
+        itself forward (no collective); backward the cotangent over the
+        ranks, so that a later :meth:`pvary`'s sum counts the ranks' equal
+        cotangents once."""
+        return _Invariant.apply(t, self)
 
     def shard(self, state: WorkerState) -> WorkerState:
         """This rank's (1, ...) block of a whole (size, ...) state, on the
@@ -157,10 +194,43 @@ class SolverMesh:
         )
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, mean):
+        return mesh.all_mean(t) if mean else mesh.all_sum(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.mesh.all_sum(ct), None
+
+
+class _Invariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.size = mesh.size
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct / ctx.size, None
+
+
 class DrySolverMesh(SolverMesh):
     """A stand-in of one rank of a ``size``-rank mesh in a single process:
     it issues no communication and counts each collective's shapes as the
-    real mesh would.  ``all_gather`` returns this rank's block in its
+    real mesh would (the backward's of :meth:`psum`, :meth:`pvary` and the
+    like included).  ``all_gather`` returns this rank's block in its
     place and zeros for every other rank (idle peers: a rank with work
     finds takers), an all-reduce returns this rank's operand, a barrier
     returns.  Shapes, so bytes and counts, equal a real group's wherever
@@ -175,27 +245,28 @@ class DrySolverMesh(SolverMesh):
         out = block.new_zeros((self.size * block.shape[0], *block.shape[1:]))
         self._count("all-gather", out)
         n = block.shape[0]
-        self._call(lambda: out[self.rank * n:(self.rank + 1) * n].copy_(block))
+        self._call(lambda: out[self.rank * n:(self.rank + 1) * n].copy_(block), "all-gather")
         return out
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         out = t.clone()
         self._count("all-reduce", out)
-        self._call(lambda: None)
+        self._call(lambda: None, "all-reduce")
         return out
 
     def barrier(self) -> None:
-        self._call(lambda: None)
+        self._call(lambda: None, "barrier")
 
 
 @dataclasses.dataclass
 class ExpertMesh:
-    """A rank's view of the (data D, model M) grid of expert-parallel
-    serving (JAX's ``_moe_shard_map`` mesh): rank ``r`` of the D·M is data
-    rank ``r // M`` and model rank ``r % M``; ``model`` is the mesh of its
-    data row (the M ranks that split the experts and sum each layer's
-    output), ``data`` the mesh of its model column (the D ranks that hold
-    the same experts and pool the router statistics)."""
+    """A rank's view of the (data D, model M) grid of expert parallelism
+    (JAX's ``_moe_shard_map`` mesh), serving and training: rank ``r`` of the
+    D·M is data rank ``r // M`` and model rank ``r % M``; ``model`` is the
+    mesh of its data row (the M ranks that split the experts and sum each
+    layer's output), ``data`` the mesh of its model column (the D ranks that
+    hold the same experts, pool the router statistics and average the
+    gradients)."""
 
     data: SolverMesh
     model: SolverMesh
@@ -215,6 +286,12 @@ class ExpertMesh:
     def reset_collectives(self) -> None:
         for m in self.meshes:
             m.reset_collectives()
+
+    def collective_ms(self) -> dict:
+        """The timed collectives' walls (``set_timing``) in ms, by mesh
+        (``model``: the row, ``data``: the column) and kind."""
+        return {name: {k: v * 1e3 for k, v in m.coll_s.items()}
+                for name, m in (("model", self.model), ("data", self.data))}
 
     def collective_report(self) -> dict:
         result, counts = {}, {}

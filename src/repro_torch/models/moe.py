@@ -35,9 +35,11 @@ of a (data, model) grid of ``torch.distributed`` ranks
 own tokens with JAX's ceiling capacity, runs the assignments that hit its
 experts, and one SUM over the model ranks gives the output.  An ``MoE``
 whose ``ep`` is set takes it (:func:`attach_expert_mesh`); it serves
-(prefill and decode), and training through it is not ported (it needs
-collectives under autograd).  Neither package has a hand-written kernel
-here: the expert products are plain matrix products.
+(prefill and decode) and trains: its collectives carry JAX's transposes
+under autograd (``SolverMesh.psum``/``pvary``/``invariant``), so each rank's
+backward gives the gradient of the whole layer (``launch/train.py``
+averages it over the data ranks).  Neither package has a hand-written
+kernel here: the expert products are plain matrix products.
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ def expert_range(n_experts: int, rank: int, ranks: int) -> tuple:
     return rank * per, (rank + 1) * per
 
 
-def route(cfg: ModelConfig, p, x: torch.Tensor, C: int | None = None) -> dict:
+def route(cfg: ModelConfig, p, x: torch.Tensor, C: int | None = None, router=None) -> dict:
     """The routing of x (B, S, d), tokens flattened to T = B·S:
 
     * ``probs`` (T, E), ``top_e`` and ``top_p`` (T, K), renormalised;
@@ -112,13 +114,15 @@ def route(cfg: ModelConfig, p, x: torch.Tensor, C: int | None = None) -> dict:
     * ``slot``: the row of the (E·C, d) expert batch, E·C when dropped;
     * ``counts`` (E,): assignments per expert, ``C``, and ``aux``.
 
-    ``C`` defaults to :func:`capacity`.  The router runs in f32, or in x's
-    dtype where that is wider (an f64 reference of the same op)."""
+    ``C`` defaults to :func:`capacity`, ``router`` to ``p.router``.  The
+    router runs in f32, or in x's dtype where that is wider (an f64
+    reference of the same op)."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T, A = B * S, B * S * K
     rdt = torch.promote_types(x.dtype, torch.float32)
-    logits = x.reshape(T, d).to(rdt) @ p.router.to(rdt)
+    router = p.router if router is None else router
+    logits = x.reshape(T, d).to(rdt) @ router.to(rdt)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, K, dim=-1)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -157,7 +161,10 @@ def _experts(p, x: torch.Tensor, r: dict, slot, keep, n_rows: int):
     n_exp = p.w1.shape[0]
     with record_function("moe.dispatch"):
         buf = x.new_zeros((n_rows + 1, d))  # the last row takes the dropped
-        buf[slot] = x.reshape(T, d)[r["st"]]
+        # the gather as an embedding lookup: its gradient adds each token's K
+        # copies in a fixed order (an index expression's scatters them with
+        # atomic adds on the card, which vary from run to run)
+        buf[slot] = F.embedding(r["st"], x.reshape(T, d))
         xe = buf[:n_rows].view(n_exp, n_rows // n_exp, d)
     with record_function("moe.experts"):
         h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
@@ -203,9 +210,20 @@ def moe_apply_ep(cfg: ModelConfig, p, x: torch.Tensor, ep):
     order; one SUM over the model ranks gives the output.  The aux loss
     uses the expert counts summed and the mean probabilities averaged over
     the data ranks, of all T = D·Tg tokens, as at ``:209-217`` (the same on
-    every model rank: JAX's pmean over the model axis changes nothing).
-    E % M != 0 raises ``ValueError``: JAX drops back to its gspmd route
-    there, which a rank holding E/M experts cannot run."""
+    every model rank).
+
+    Under autograd the collectives carry JAX's transposes: the output's SUM
+    (``psum``) passes its cotangent through; x and the router enter as
+    values every model rank holds whole (``pvary``: x's replicated in_spec
+    at ``:252``, the router's gather at ``:201``), so the backward sums
+    each rank's part of their gradients over the model ranks; the aux loss,
+    computed equal on every model rank, has its cotangent divided by M
+    (``invariant``: JAX's ``pmean(aux, model)`` at ``:218``), so that sum
+    counts it once; the data mean of the probabilities passes its cotangent
+    through (``pmean``: the data ranks' gradients are averaged after the
+    backward).  The counts carry no gradient.  E % M != 0 raises
+    ``ValueError``: JAX drops back to its gspmd route there, which a rank
+    holding E/M experts cannot run."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     M, D = ep.model.size, ep.data.size
@@ -217,18 +235,19 @@ def moe_apply_ep(cfg: ModelConfig, p, x: torch.Tensor, ep):
     if p.w1.shape[0] != E_loc:
         raise ValueError(f"model rank {ep.model.rank} of {M} holds {p.w1.shape[0]} experts, "
                          f"not E/M = {E_loc}")
+    x = ep.model.pvary(x)
     with record_function("moe.route"):
-        r = route(cfg, p, x, C=ep_capacity(cfg, Tg))
+        r = route(cfg, p, x, C=ep_capacity(cfg, Tg), router=ep.model.pvary(p.router))
         C = r["C"]
         counts = ep.data.all_sum(r["counts"].to(r["probs"].dtype))
-        pmean = ep.data.all_mean(r["probs"].mean(0))
-        aux = E * torch.sum(counts / (D * Tg * K) * pmean)
+        pmean = ep.data.pmean(r["probs"].mean(0))
+        aux = ep.model.invariant(E * torch.sum(counts / (D * Tg * K) * pmean))
         rel = r["se"] - ep.model.rank * E_loc
         mine = r["keep"] & (rel >= 0) & (rel < E_loc)
         slot = torch.where(mine, rel * C + r["pos"], E_loc * C)
     out = _experts(p, x, r, slot, mine, E_loc * C)
     with record_function("moe.collective"):
-        out = ep.model.all_sum(out)
+        out = ep.model.psum(out)
     return out.view(B, S, d), aux
 
 

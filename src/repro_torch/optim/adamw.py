@@ -57,13 +57,6 @@ def tree_map(fn, tree, *rest, is_leaf=None):
     return fn(tree, *rest)
 
 
-class _Leaf:
-    """One leaf's (param, m, v): a leaf of the update's result tree."""
-
-    def __init__(self, parts):
-        self.parts = parts
-
-
 def adamw_init(params) -> OptState:
     zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
     step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
@@ -71,12 +64,20 @@ def adamw_init(params) -> OptState:
                     m=zeros, v=tree_map(torch.clone, zeros))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, reduce_sumsq=None) -> torch.Tensor:
     """sqrt of the sum of the leaves' f32 sums of squares, added in the
-    tree's leaf order."""
+    tree's leaf order.
+
+    ``reduce_sumsq`` makes it the norm of a tree that ranks hold in shards:
+    it maps the (n_leaves,) vector of this rank's sums of squares, in leaf
+    order, to the whole tree's (``launch/train.py`` sums the expert shards'
+    entries over the model ranks), before the same adds."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if reduce_sumsq is not None:
+        sums = reduce_sumsq(torch.stack(sums)).unbind()
     total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -103,11 +104,16 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    reduce_sumsq=None,
 ):
     """One AdamW step with global-norm clipping -> (params, opt, stats):
-    new tensors, the inputs untouched; ``stats`` holds the pre-clip
-    ``grad_norm`` and the step's ``lr``."""
-    gnorm = global_norm(grads)
+    each leaf's new parameter, ``m`` and ``v`` are written over the old ones
+    in ``params``, ``opt.m`` and ``opt.v`` (which are returned, with the new
+    step), leaf by leaf, so one leaf's new state is alive at a time and not
+    a second copy of the whole state; ``stats`` holds the pre-clip
+    ``grad_norm`` (``reduce_sumsq`` as :func:`global_norm`'s) and the step's
+    ``lr``."""
+    gnorm = global_norm(grads, reduce_sumsq)
     scale = torch.clamp(clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     step = opt.step + 1
     lr = cosine_schedule(step, peak_lr=peak_lr, warmup_steps=warmup_steps,
@@ -124,8 +130,8 @@ def adamw_update(
         update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
         update = update + weight_decay * p.float()
         p_new = p.float() - lr * update
-        return _Leaf((p_new.to(p.dtype), m_new, v_new))
+        for dst, src in zip((p, m, v), (p_new, m_new, v_new)):
+            dst.copy_(src)  # the cast back to p's dtype rounds as .to() does
 
-    out = tree_map(upd, params, grads, opt.m, opt.v)
-    pick = lambda i: tree_map(lambda t: t.parts[i], out, is_leaf=_Leaf.__instancecheck__)  # noqa: E731
-    return pick(0), OptState(step=step, m=pick(1), v=pick(2)), {"grad_norm": gnorm, "lr": lr}
+    tree_map(upd, params, grads, opt.m, opt.v)
+    return params, OptState(step=step, m=opt.m, v=opt.v), {"grad_norm": gnorm, "lr": lr}

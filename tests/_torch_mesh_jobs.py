@@ -236,3 +236,131 @@ def serve_ep(mesh, spec: dict) -> dict:
 
     torch.set_num_threads(1)
     return serve_expert_parallel(mesh, spec)
+
+
+def _flat_np(tree, prefix="") -> dict:
+    """{path: numpy leaf} of a JAX-layout tree of tensors."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_flat_np(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v.detach().numpy().copy()
+    return out
+
+
+def _ep_params(cfg, tree, grid):
+    """This rank's (ExpertMesh, model, params): the grid's rank with its
+    experts' cut of ``tree``."""
+    from repro_torch.launch.mesh import make_expert_mesh
+    from repro_torch.models.convert import expert_shard, load_jax_params
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import init_expert_parallel
+
+    ep = make_expert_mesh(*grid, device="cpu")
+    params = init_expert_parallel(cfg, ep, device="cpu")
+    load_jax_params(params, expert_shard(tree, ep.model.rank, ep.model.size))
+    return ep, get_model(cfg), params
+
+
+def _rows(batch: dict, ep) -> dict:
+    import torch
+
+    D, d = ep.data.size, ep.data.rank
+    B = next(iter(batch.values())).shape[0]
+    return {k: torch.from_numpy(v[d * B // D:(d + 1) * B // D]) for k, v in batch.items()}
+
+
+def moe_ep_train(mesh, cases: list) -> dict:
+    """``{label: this rank's readings}`` of expert-parallel training on each
+    case's (data D, model M) grid; a case is ``(label, cfg, tree, batch,
+    (D, M))`` with ``tree`` the model's JAX tree and ``batch`` the global
+    batch (numpy).  Readings: the rank's place, ``value_and_grad``'s loss
+    and gradients (JAX layout, the expert leaves this rank's shards), then
+    two ``train_step`` from a fresh AdamW state: their losses and grad
+    norms, the parameters after the first and after the second."""
+    import torch
+
+    from repro_torch.launch.train import train_step, value_and_grad
+    from repro_torch.models.convert import export_params, export_tree
+    from repro_torch.optim import adamw_init
+
+    torch.set_num_threads(1)
+
+    def run(cfg, tree, batch, grid):
+        ep, model, params = _ep_params(cfg, tree, grid)
+        b = _rows(batch, ep)
+        loss, grads = value_and_grad(model, params, b)
+        out = {"d": ep.data.rank, "m": ep.model.rank, "loss": float(loss),
+               "grads": _flat_np(export_tree(params, grads)), "steps": []}
+        opt = adamw_init({k: p.detach() for k, p in params.named_parameters()})
+        for _ in range(2):
+            opt, loss, gnorm = train_step(model, params, opt, b, peak_lr=3e-4,
+                                          total_steps=10_000)
+            out["steps"].append({"loss": float(loss), "gnorm": float(gnorm),
+                                 "params": _flat_np(export_params(params))})
+        return out
+
+    return {label: _guarded(run, cfg, tree, batch, grid)
+            for label, cfg, tree, batch, grid in cases}
+
+
+def moe_ep_layer_grad(mesh, cases: list) -> dict:
+    """``{label: (data rank, model rank, dL/dx of its rows, dL/drouter)}``:
+    one MoE layer (block 0 of ``tree``) on each case's grid, the rank's loss
+    ``D · sum(out · w) + aux`` over its rows (its share of the global
+    ``sum(out · w) + aux``, scaled as a data rank's mean loss is); a case is
+    ``(label, cfg, tree, x, w, (D, M))``, ``x`` and ``w`` (B, S, d)."""
+    import torch
+
+    from repro_torch.models.moe import moe_apply_ep
+
+    torch.set_num_threads(1)
+
+    def run(cfg, tree, x, w, grid):
+        ep, _, params = _ep_params(cfg, tree, grid)
+        p = params.blocks[0].moe
+        r = _rows({"x": x, "w": w}, ep)
+        xs = r["x"].requires_grad_(True)
+        out, aux = moe_apply_ep(cfg, p, xs, ep)
+        loss = ep.data.size * torch.sum(out * r["w"]) + aux
+        gx, gr = torch.autograd.grad(loss, (xs, p.router))
+        return ep.data.rank, ep.model.rank, gx.numpy(), gr.numpy()
+
+    return {label: _guarded(run, cfg, tree, x, w, grid)
+            for label, cfg, tree, x, w, grid in cases}
+
+
+def ep_train_checkpoints(mesh, spec: dict) -> dict:
+    """Checkpoints across the grid and one process: ``train_loop`` on the
+    spec's grid to ``first`` steps, checkpointed in ``write_dir``; then a
+    fresh run on the grid resumed from ``resume_dir`` (written by one
+    process) to ``steps``.  -> the rank's place and both runs' losses."""
+    import torch
+
+    from repro_torch.launch.mesh import make_expert_mesh
+    from repro_torch.launch.train import train_loop
+
+    torch.set_num_threads(1)
+    ep = make_expert_mesh(*spec["grid"], device="cpu")
+    kw = dict(spec["loop"], device="cpu", ep=ep, ckpt_every=10**9)
+    _, _, written = train_loop(spec["cfg"], steps=spec["first"], ckpt_dir=spec["write_dir"],
+                               **kw)
+    _, opt, resumed = train_loop(spec["cfg"], steps=spec["steps"],
+                                 ckpt_dir=spec["resume_dir"], resume=True, **kw)
+    return {"d": ep.data.rank, "m": ep.model.rank, "written": written, "resumed": resumed,
+            "step": int(opt.step)}
+
+
+def ep_train_loop(mesh, spec: dict) -> dict:
+    """``train_loop`` on the spec's (D, M) grid from the seeded init, as
+    ``launch.train``'s ranks run it: -> the grid, each step's loss and
+    grad norm."""
+    from repro_torch.launch.mesh import make_expert_mesh
+    from repro_torch.launch.train import train_loop
+
+    ep = make_expert_mesh(*spec["grid"], device="cpu")
+    gnorms = []
+    _, _, losses = train_loop(spec["cfg"], **spec["loop"], device="cpu", ep=ep, gnorms=gnorms)
+    return {"grid": [ep.data.size, ep.model.size], "losses": losses, "gnorms": gnorms}

@@ -188,7 +188,9 @@ def test_cli_writes_jax_keys_and_skips(tmp_path):
 
 def test_expert_parallel_cell_sizes_one_rank():
     """``--moe-impl shard_map``: one rank's E/M experts, and the three
-    all-reduces a layer the route issues (counted by the stand-in)."""
+    all-reduces a layer the route issues (counted by the stand-in); its
+    train cell is counted too (``test_expert_parallel_train_cell_counts_
+    the_backward``)."""
     cfg = get_smoke_config("qwen3_moe_235b_a22b")
     shape = ShapeConfig("t", 8, 2, "prefill")
     whole = dryrun.run_cell(cfg, shape)
@@ -199,8 +201,35 @@ def test_expert_parallel_cell_sizes_one_rank():
     assert ep["collective_counts"]["all-reduce"] == 3 * cfg.n_layers
     assert ep["collectives"]["all-reduce"] == cfg.n_layers * 2 * 4 * (2 * E + 16 * d)
     train = dryrun.run_cell(cfg, ShapeConfig("t", 8, 2, "train"), expert_ranks=4)
-    assert train == {"arch": cfg.name, "shape": "t", "status": "SKIP",
-                     "reason": dryrun.EP_TRAIN_SKIP}
+    assert train["status"] == "OK" and train["mesh"] == "1 rank of 4 (expert parallel)"
+
+
+def test_expert_parallel_train_cell_counts_the_backward():
+    """The train cell under ``--moe-impl shard_map --expert-ranks 4`` counts
+    the expert-parallel step, by hand: a layer's forward (the counts' and
+    the mean probabilities' reductions over the data ranks, E f32 each, and
+    the output's SUM over the model ranks, (Tg, d) f32), the remat
+    recompute's rerun of the two data reductions (torch's recompute stops at
+    the last tensor the backward needs, before the SUM, which no backward
+    reads), and the backward's sums over the model ranks of x's cotangent,
+    (Tg, d), and the router's, (d, E); then one sum of the expert shards'
+    squares, a vector of the tree's leaves.  On one data rank nothing is
+    averaged.  All-reduces counted ×2."""
+    cfg = get_smoke_config("qwen3_moe_235b_a22b")
+    shape = ShapeConfig("t", 8, 2, "train")
+    r = dryrun.run_cell(cfg, shape, expert_ranks=4)
+    E, d, L = cfg.n_experts, cfg.d_model, cfg.n_layers
+    Tg = shape.global_batch * shape.seq_len
+    leaves = 3 + L * 10  # embed, ln_f, unembed; ln1, ln2, 4 attention, router, w1, w3, w2
+    forward = 4 * (E + E + Tg * d)
+    recompute = 4 * (E + E)
+    backward = 4 * (Tg * d + d * E)
+    assert r["collective_counts"]["all-reduce"] == L * (3 + 2 + 2) + 1
+    assert r["collectives"]["all-reduce"] == 2 * (L * (forward + recompute + backward)
+                                                  + 4 * leaves)
+    assert r["collectives"]["total"] == r["collectives"]["all-reduce"]
+    prefill = dryrun.run_cell(cfg, ShapeConfig("t", 8, 2, "prefill"), expert_ranks=4)
+    assert r["cost"]["flops"] > 3 * prefill["cost"]["flops"] > 0
 
 
 def test_expert_ranks_leave_an_arch_without_experts_one_card():
@@ -234,8 +263,9 @@ def test_all_cells_under_shard_map_end_with_no_error(monkeypatch, tmp_path, caps
     skipped = {k for k, r in results.items() if r["status"] == "SKIP"}
     moe_train = {(get_config(a).name, s) for a, s in CELLS
                  if get_config(a).is_moe and SHAPES[s].kind == "train"}
-    assert skipped == set(dryrun.SKIP) | moe_train
-    assert all(results[k]["reason"] == dryrun.EP_TRAIN_SKIP for k in moe_train - set(dryrun.SKIP))
+    assert skipped == set(dryrun.SKIP)
+    assert moe_train and all(results[k]["status"] == "OK" for k in moe_train)
+    assert {(n, s) for n, s, e in ran if e == 4} >= moe_train
     for name, shape, expert_ranks in ran:
         assert expert_ranks == (4 if get_config(name).is_moe else 0), (name, shape)
     assert {e for *_, e in ran} == {0, 4}
