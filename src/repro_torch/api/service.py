@@ -95,14 +95,15 @@ from repro_torch.core.superstep import (
     lane_swap_in,
     lane_write_back,
     make_vacant_lanes,
-    step_lanes,
 )
 from repro_torch.problems import base as problems_base
 from repro_torch.problems.base import WorkCounters
 from repro_torch.problems.registry import get_problem
+from repro_torch.telemetry import span
 
 # counters of the port's service that the JAX package's has not
-PORT_ONLY_STATS = ("supersteps",)
+PORT_ONLY_STATS = ("supersteps", "lane_supersteps", "busy_lane_supersteps",
+                   "retired_nodes")
 
 
 class SolveTimeout(TimeoutError):
@@ -350,6 +351,9 @@ class SolveService:
             "residency_s_total": 0.0,
             "lanes_quarantined": 0,
             "timed_out": 0,
+            "lane_supersteps": 0,
+            "busy_lane_supersteps": 0,
+            "retired_nodes": 0,
         }
 
     # -- submission ------------------------------------------------------------
@@ -408,18 +412,19 @@ class SolveService:
 
         With ``config.checkpoint_dir`` set, every ``checkpoint_every``-th
         step also writes a service checkpoint (see :meth:`checkpoint`)."""
-        self._stats["steps"] += 1
-        completed = self._sweep_queue_timeouts()
-        self._admit()
-        for plane in self._planes.values():
-            if plane.occupied_count() == 0:
-                continue  # an all-vacant plane costs nothing
-            completed.extend(self._step_plane(plane))
-        if (
-            self.config.checkpoint_dir is not None
-            and self._stats["steps"] % self.config.checkpoint_every == 0
-        ):
-            self.checkpoint(self.config.checkpoint_dir)
+        with span("service.step", self.device):
+            self._stats["steps"] += 1
+            completed = self._sweep_queue_timeouts()
+            self._admit()
+            for plane in self._planes.values():
+                if plane.occupied_count() == 0:
+                    continue  # an all-vacant plane costs nothing
+                completed.extend(self._step_plane(plane))
+            if (
+                self.config.checkpoint_dir is not None
+                and self._stats["steps"] % self.config.checkpoint_every == 0
+            ):
+                self.checkpoint(self.config.checkpoint_dir)
         return completed
 
     def drain(self) -> list:
@@ -480,10 +485,23 @@ class SolveService:
         retries, zeros without one; quarantined and shed lanes) and, the
         port's own, ``supersteps`` (the plane supersteps every
         chunk ran, each one launch of the expansion kernel per explore
-        round for the whole plane) and ``reduce_sweeps`` (the reduction
+        round for the whole plane), ``reduce_sweeps`` (the reduction
         sweeps of every plane's explore rounds, see
-        :class:`~repro_torch.problems.base.WorkCounters`)."""
+        :class:`~repro_torch.problems.base.WorkCounters`),
+        ``nodes_expanded`` (the nodes of every retired ticket plus the live
+        lanes' counters, read from the device now), ``lane_supersteps``
+        (each chunk's supersteps times its plane's lanes) and
+        ``busy_lane_supersteps`` (the supersteps of those that served an
+        unfinished instance: the lanes' round growth), so that search
+        throughput and lane occupancy are read inside the program."""
         s = dict(self._stats)
+        live = 0
+        for p in self._planes.values():
+            occ = p.lanes.occupied()
+            if occ.any():
+                per_lane = p.lanes.worker.nodes_expanded.sum(-1, dtype=torch.int64)
+                live += int(per_lane.cpu().numpy()[occ].sum())
+        s["nodes_expanded"] = s.pop("retired_nodes") + live
         s["queued"] = len(self.scheduler)
         s["planes"] = len(self._planes)
         s["occupancy"] = (
@@ -689,40 +707,41 @@ class SolveService:
                 tenant_occ[req.tenant] = tenant_occ.get(req.tenant, 0) + 1
 
     def _admit_into(self, plane: _LivePlane, lane: int, req: SolveRequest) -> None:
-        cfg, spec, g = self.config, self.spec, req.g
-        # the solo pad for this n must match the plane's (true for the native
-        # record schema; a problem with n-sized record extras under the
-        # optimized codec would silently skew byte accounting: refuse)
-        solo_pad = make_codec(cfg.codec, g.n, problem=spec).pad_words
-        if solo_pad != plane.pad:
-            raise ValueError(
-                f"problem {spec.name!r} has n-dependent record padding "
-                f"(pad {solo_pad} at n={g.n} vs plane {plane.pad}); "
-                "serve it with codec='basic' (exact-n planes)"
+        with span("service.admit", self.device, ticket=req.ticket, plane=str(plane.key)):
+            cfg, spec, g = self.config, self.spec, req.g
+            # the solo pad for this n must match the plane's (true for the native
+            # record schema; a problem with n-sized record extras under the
+            # optimized codec would silently skew byte accounting: refuse)
+            solo_pad = make_codec(cfg.codec, g.n, problem=spec).pad_words
+            if solo_pad != plane.pad:
+                raise ValueError(
+                    f"problem {spec.name!r} has n-dependent record padding "
+                    f"(pad {solo_pad} at n={g.n} vs plane {plane.pad}); "
+                    "serve it with codec='basic' (exact-n planes)"
+                )
+            initial_best = problems_base.initial_bound(spec, g, cfg.mode, req.k)
+            worker = _engine.make_instance_state(
+                spec, g, cfg.num_workers, plane.cap, plane.W, initial_best, self.device
             )
-        initial_best = problems_base.initial_bound(spec, g, cfg.mode, req.k)
-        worker = _engine.make_instance_state(
-            spec, g, cfg.num_workers, plane.cap, plane.W, initial_best, self.device
-        )
-        lane_swap_in(plane.lanes, lane, worker, req.ticket)
-        problems_base.write_instance(plane.datas, lane, spec, g)
-        if plane.use_fpt:
-            plane.fpt_bounds[lane] = int(spec.fpt_target(req.k))
-        plane.requests[lane] = req
-        plane.admit_s[lane] = self._clock() - self._t0
-        plane.last_rounds[lane] = 0
-        plane.stall_chunks[lane] = 0
-        if cfg.frontier_spill:
-            plane.spillers[lane] = make_spiller(cfg, spec, g, plane.cap, cfg.num_workers,
-                                                self.injector)
-        self.cache.note(
-            "batch",
-            spec,
-            cfg,
-            plane.pad,
-            plane.use_fpt,
-            (plane.n_max, plane.W, plane.cap, cfg.num_workers, plane.lanes.num_lanes),
-        )
+            lane_swap_in(plane.lanes, lane, worker, req.ticket)
+            problems_base.write_instance(plane.datas, lane, spec, g)
+            if plane.use_fpt:
+                plane.fpt_bounds[lane] = int(spec.fpt_target(req.k))
+            plane.requests[lane] = req
+            plane.admit_s[lane] = self._clock() - self._t0
+            plane.last_rounds[lane] = 0
+            plane.stall_chunks[lane] = 0
+            if cfg.frontier_spill:
+                plane.spillers[lane] = make_spiller(cfg, spec, g, plane.cap, cfg.num_workers,
+                                                    self.injector)
+            self.cache.note(
+                "batch",
+                spec,
+                cfg,
+                plane.pad,
+                plane.use_fpt,
+                (plane.n_max, plane.W, plane.cap, cfg.num_workers, plane.lanes.num_lanes),
+            )
 
     def _sweep_queue_timeouts(self) -> list:
         """Resolve queued requests past ``config.request_timeout_s`` to a
@@ -794,10 +813,18 @@ class SolveService:
                                 int(plane.lanes.rounds[lane]))
 
         occupied = plane.lanes.occupied()
-        plane.lanes, ran, hot = step_lanes(
-            plane.plane, plane.datas, plane.lanes, plane.fpt_bounds, plane.counters
+        # step_lanes, keeping the plane's per-lane superstep counts
+        worker, done, grown, ran, hot = plane.plane(
+            plane.datas, plane.lanes.worker, plane.lanes.done, plane.fpt_bounds,
+            plane.counters
+        )
+        plane.lanes = plane.lanes._replace(
+            worker=worker, done=done,
+            rounds=plane.lanes.rounds + torch.from_numpy(grown).to(self.device),
         )
         self._stats["supersteps"] += ran
+        self._stats["lane_supersteps"] += ran * plane.lanes.num_lanes
+        self._stats["busy_lane_supersteps"] += int(grown.sum())
         for lane, (worker, done_snap, rounds_snap) in frozen.items():
             lane_write_back(plane.lanes, lane, worker, done_snap, rounds_snap)
         # the service's one host read a chunk (the plane read done once a
@@ -869,8 +896,10 @@ class SolveService:
                 timed_out.add(int(lane))
         if len(finished) == 0 and not over_budget:
             return []
-        return self._retire(plane, finished, over_budget, over_wall, timed_out,
-                            rounds_h, now)
+        with span("service.retire", self.device, lanes=len(finished) + len(over_budget),
+                  plane=str(plane.key)):
+            return self._retire(plane, finished, over_budget, over_wall, timed_out,
+                                rounds_h, now)
 
     def _retire(self, plane: _LivePlane, finished, over_budget: list,
                 over_wall: set, timed_out: set, rounds_h, now: float) -> list:
@@ -925,6 +954,7 @@ class SolveService:
                 self._results[req.ticket] = res
             completed.append(req.ticket)
             self._stats["completed"] += 1
+            self._stats["retired_nodes"] += r.nodes_expanded
             self._stats["evicted"] += int(evicted)
             self._stats["wait_s_total"] += plane.admit_s[lane] - req.submit_s
             self._stats["residency_s_total"] += now - plane.admit_s[lane]

@@ -49,6 +49,14 @@ package's public builders over both.
 
 Every integer is pinned to the JAX package's dtype (int32), so wraparound
 matches, e.g. in ``donor_key = top_depth * P + idx``.
+
+Each phase runs inside a :func:`repro_torch.telemetry.span` (no cost but
+one check while nothing records): ``explore.pop``, ``explore.expand``,
+``explore.select`` (prune and best update) and ``explore.push`` in every
+explore round; ``center.status``, ``center.match`` and ``center.done`` for
+the center; ``transfer.pop`` and ``transfer.push`` for the data plane; the
+chunk runner's ``plane.chunk``, ``plane.superstep``, ``plane.freeze`` and
+``plane.done_read`` around them.
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ from repro_torch.problems.base import (
     for_task_rows,
     resolve_expand,
 )
+from repro_torch.telemetry import span
 
 # the JAX package's registries of the two hot-path knobs
 EXPLORE_IMPLS = ("fused", "reference")
@@ -137,58 +146,64 @@ def _explore_one_round(
     children are pushed back per worker.  ``explore_impl`` picks the pop
     and the expansion (the module docstring); both routes count their
     reduction sweeps into ``counters``."""
-    if explore_impl == "fused":
-        f, masks, sols, depths, valid = pop_deepest_cheap(state.frontier, lanes)
-        expand = resolve_expand(problem)
-    else:
-        f, masks, sols, depths, valid = pop_deepest(state.frontier, lanes)
-        # ALWAYS the composed callables, as in the JAX package: the fused
-        # path's default for a plugin without expand_tasks, so the two
-        # routes cannot drift apart
-        expand = compose_expand_tasks(problem)
+    dev = state.best_sol.device
+    with span("explore.pop", dev):
+        if explore_impl == "fused":
+            f, masks, sols, depths, valid = pop_deepest_cheap(state.frontier, lanes)
+            expand = resolve_expand(problem)
+        else:
+            f, masks, sols, depths, valid = pop_deepest(state.frontier, lanes)
+            # ALWAYS the composed callables, as in the JAX package: the fused
+            # path's default for a plugin without expand_tasks, so the two
+            # routes cannot drift apart
+            expand = compose_expand_tasks(problem)
     P, L, W = masks.shape
-    ex = expand(data, masks.reshape(P * L, W), sols.reshape(P * L, W), counters=counters)
+    with span("explore.expand", dev):
+        ex = expand(data, masks.reshape(P * L, W), sols.reshape(P * L, W), counters=counters)
     res = ex.step
-    bounds = ex.bound.view(P, L)
-    is_terminal = res.is_terminal.view(P, L)
-    terminal_value = res.terminal_value.view(P, L)
-    best = state.best_val[:, None]
+    with span("explore.select", dev):
+        bounds = ex.bound.view(P, L)
+        is_terminal = res.is_terminal.view(P, L)
+        terminal_value = res.terminal_value.view(P, L)
+        best = state.best_val[:, None]
 
-    not_pruned = valid & (bounds < best)
+        not_pruned = valid & (bounds < best)
 
-    # terminal candidates -> best update (the first lane of the least value)
-    term = not_pruned & is_terminal & (terminal_value < best)
-    term_val = torch.where(term, terminal_value, 1 << 30)
-    found_val = term_val.amin(dim=-1)  # (P,) 1<<30 when no lane found one
-    lane_idx = torch.arange(L, device=masks.device)
-    li = torch.where(term_val == found_val[:, None], lane_idx, L).amin(dim=-1)
-    workers = torch.arange(P, device=masks.device)
-    found_sol = res.terminal_sol.view(P, L, W)[workers, li]
-    new_sol = torch.where(
-        (found_val < state.local_best_val)[:, None], found_sol, state.best_sol
-    )
-    new_local = torch.minimum(state.local_best_val, found_val)
-    new_best = torch.minimum(state.best_val, found_val)
+        # terminal candidates -> best update (the first lane of the least value)
+        term = not_pruned & is_terminal & (terminal_value < best)
+        term_val = torch.where(term, terminal_value, 1 << 30)
+        found_val = term_val.amin(dim=-1)  # (P,) 1<<30 when no lane found one
+        lane_idx = torch.arange(L, device=masks.device)
+        li = torch.where(term_val == found_val[:, None], lane_idx, L).amin(dim=-1)
+        workers = torch.arange(P, device=masks.device)
+        found_sol = res.terminal_sol.view(P, L, W)[workers, li]
+        new_sol = torch.where(
+            (found_val < state.local_best_val)[:, None], found_sol, state.best_sol
+        )
+        new_local = torch.minimum(state.local_best_val, found_val)
+        new_best = torch.minimum(state.best_val, found_val)
 
-    # children: [left_0..left_L, right_0..right_L], pruned at birth when the
-    # cheap bound cannot beat the best
-    expandable = not_pruned & ~is_terminal
-    cdepth = depths + 1
-    lvalid = expandable & (ex.left_bound.view(P, L) < new_best[:, None])
-    rvalid = expandable & (ex.right_bound.view(P, L) < new_best[:, None])
-    f = push_many(
-        f,
-        torch.cat([res.left_mask.view(P, L, W), res.right_mask.view(P, L, W)], 1),
-        torch.cat([res.left_sol.view(P, L, W), res.right_sol.view(P, L, W)], 1),
-        torch.cat([cdepth, cdepth], 1),
-        torch.cat([lvalid, rvalid], 1),
-    )
+        # children: [left_0..left_L, right_0..right_L], pruned at birth when
+        # the cheap bound cannot beat the best
+        expandable = not_pruned & ~is_terminal
+        cdepth = depths + 1
+        lvalid = expandable & (ex.left_bound.view(P, L) < new_best[:, None])
+        rvalid = expandable & (ex.right_bound.view(P, L) < new_best[:, None])
+        nodes = state.nodes_expanded + valid.sum(dim=-1, dtype=torch.int32)
+    with span("explore.push", dev):
+        f = push_many(
+            f,
+            torch.cat([res.left_mask.view(P, L, W), res.right_mask.view(P, L, W)], 1),
+            torch.cat([res.left_sol.view(P, L, W), res.right_sol.view(P, L, W)], 1),
+            torch.cat([cdepth, cdepth], 1),
+            torch.cat([lvalid, rvalid], 1),
+        )
     return state._replace(
         frontier=f,
         best_val=new_best,
         local_best_val=new_local,
         best_sol=new_sol,
-        nodes_expanded=state.nodes_expanded + valid.sum(dim=-1, dtype=torch.int32),
+        nodes_expanded=nodes,
     )
 
 
@@ -310,72 +325,77 @@ def superstep(
         )
 
     # 2. control plane through the center + 5. best-value broadcast
-    pending = pending_per_worker(state.frontier)
-    top_depth = top_priority_depth(state.frontier)
-    if packed_status:
-        # one i32 per worker: pending (15b) | clamped depth (16b)
-        word = (pending.clamp(0, 0x7FFF) << 16) | top_depth.clamp(0, 0xFFFF)
-        pend_t = word >> 16
-        depth_t = word & 0xFFFF
-        global_best = per_worker(
-            torch.minimum(state.local_best_val, state.best_val).view(B, P).amin(-1)
-        )
-    else:
-        pend_t, depth_t = pending, top_depth
-        global_best = torch.minimum(
-            per_worker(state.local_best_val.view(B, P).amin(-1)), state.best_val
-        )
-    state = state._replace(best_val=global_best.contiguous())
+    with span("center.status", dev):
+        pending = pending_per_worker(state.frontier)
+        top_depth = top_priority_depth(state.frontier)
+        if packed_status:
+            # one i32 per worker: pending (15b) | clamped depth (16b)
+            word = (pending.clamp(0, 0x7FFF) << 16) | top_depth.clamp(0, 0xFFFF)
+            pend_t = word >> 16
+            depth_t = word & 0xFFFF
+            global_best = per_worker(
+                torch.minimum(state.local_best_val, state.best_val).view(B, P).amin(-1)
+            )
+        else:
+            pend_t, depth_t = pending, top_depth
+            global_best = torch.minimum(
+                per_worker(state.local_best_val.view(B, P).amin(-1)), state.best_val
+            )
+        state = state._replace(best_val=global_best.contiguous())
 
     # 3. the replicated center, per instance (rounds is the same on every
     # worker of an instance)
-    send_to, recv_from = match_idle_to_donors(
-        pend_t.view(B, P), depth_t.view(B, P), policy_priority,
-        state.rounds.view(B, P)[:, 0],
-    )
-    matched = send_to >= 0
-    n_match = matched.sum(-1, dtype=torch.int32)  # (B,)
-    # records each donor ships (>= 1 when matched: pending >= 2)
-    n_don = torch.where(
-        matched, torch.clamp(pend_t.view(B, P) - 1, max=donate_k), 0
-    )
+    with span("center.match", dev):
+        send_to, recv_from = match_idle_to_donors(
+            pend_t.view(B, P), depth_t.view(B, P), policy_priority,
+            state.rounds.view(B, P)[:, 0],
+        )
+        matched = send_to >= 0
+        n_match = matched.sum(-1, dtype=torch.int32)  # (B,)
+        # records each donor ships (>= 1 when matched: pending >= 2)
+        n_don = torch.where(
+            matched, torch.clamp(pend_t.view(B, P) - 1, max=donate_k), 0
+        )
 
     # 4. data plane: donors pop their shallowest block, receivers push their
     # donor's block (a worker of the same instance)
-    n_don_w = n_don.reshape(BP)
-    f2, d_masks, d_sols, d_depths, _ = pop_k_shallowest(
-        state.frontier, donate_k, limit=n_don_w
-    )
-    first = torch.arange(0, BP, P, device=dev)[:, None]  # each instance's worker 0
-    src = (recv_from.clamp(0, P - 1) + first).reshape(BP)
-    ks = torch.arange(donate_k, device=dev)
-    recv_valid = (recv_from.reshape(BP) >= 0)[:, None] & (
-        ks[None, :] < n_don_w[src][:, None]
-    )
-    f3 = push_many(f2, d_masks[src], d_sols[src], d_depths[src], recv_valid)
-    if transfer_impl == "gather":
-        moved_words = torch.full(
-            (B,), P * donate_k * rec_words, dtype=torch.int32, device=dev
+    with span("transfer.pop", dev):
+        n_don_w = n_don.reshape(BP)
+        f2, d_masks, d_sols, d_depths, _ = pop_k_shallowest(
+            state.frontier, donate_k, limit=n_don_w
         )
-    else:
-        moved_words = n_don.sum(-1, dtype=torch.int32) * rec_words
-    if skip_empty_transfer:
-        ran = n_match > 0
-    else:
-        ran = torch.ones((B,), dtype=torch.bool, device=dev)
-    state = state._replace(
-        frontier=f3,
-        tasks_sent=state.tasks_sent + n_don_w,
-        tasks_recv=state.tasks_recv + recv_valid.sum(dim=-1, dtype=torch.int32),
-        transfer_rounds=state.transfer_rounds + per_worker(ran.to(torch.int32)),
-        payload_words=state.payload_words
-        + per_worker(torch.where(ran, moved_words, 0)),
-        rounds=state.rounds + 1,
-    )
+    with span("transfer.push", dev):
+        first = torch.arange(0, BP, P, device=dev)[:, None]  # each instance's worker 0
+        src = (recv_from.clamp(0, P - 1) + first).reshape(BP)
+        ks = torch.arange(donate_k, device=dev)
+        recv_valid = (recv_from.reshape(BP) >= 0)[:, None] & (
+            ks[None, :] < n_don_w[src][:, None]
+        )
+        f3 = push_many(f2, d_masks[src], d_sols[src], d_depths[src], recv_valid)
+        if transfer_impl == "gather":
+            moved_words = torch.full(
+                (B,), P * donate_k * rec_words, dtype=torch.int32, device=dev
+            )
+        else:
+            moved_words = n_don.sum(-1, dtype=torch.int32) * rec_words
+        if skip_empty_transfer:
+            ran = n_match > 0
+        else:
+            ran = torch.ones((B,), dtype=torch.bool, device=dev)
+        state = state._replace(
+            frontier=f3,
+            tasks_sent=state.tasks_sent + n_don_w,
+            tasks_recv=state.tasks_recv + recv_valid.sum(dim=-1, dtype=torch.int32),
+            transfer_rounds=state.transfer_rounds + per_worker(ran.to(torch.int32)),
+            payload_words=state.payload_words
+            + per_worker(torch.where(ran, moved_words, 0)),
+            rounds=state.rounds + 1,
+        )
 
     # exact termination: nothing pending anywhere in the instance after the
     # transfer phase
-    done = pending_per_worker(state.frontier).view(B, P).sum(-1) == 0
+    with span("center.done", dev):
+        done = pending_per_worker(state.frontier).view(B, P).sum(-1) == 0
     return state, done
 
 
@@ -406,64 +426,71 @@ def _center_on_mesh(
     does).  ``done`` is the sum of pending over the ranks, == 0."""
     P, me = mesh.size, mesh.rank
     W = state.best_sol.shape[-1]
+    dev = state.best_sol.device
     rec_words = 2 * W + 1 + transfer_pad_words
-    pending = pending_per_worker(state.frontier)  # (1,)
-    top_depth = top_priority_depth(state.frontier)
-    if packed_status:
-        word = (pending.clamp(0, 0x7FFF) << 16) | top_depth.clamp(0, 0xFFFF)
-        table = mesh.all_gather(word)  # (P,)
-        pend_t, depth_t = table >> 16, table & 0xFFFF
-        global_best = mesh.all_min(torch.minimum(state.local_best_val, state.best_val))
-    else:
-        row = torch.stack([pending, top_depth, state.local_best_val], dim=-1)
-        table = mesh.all_gather(row)  # (P, 3)
-        pend_t, depth_t = table[:, 0], table[:, 1]
-        global_best = torch.minimum(table[:, 2].amin(), state.best_val)
-    state = state._replace(best_val=global_best)
-
-    send_to, recv_from = match_idle_to_donors(
-        pend_t[None], depth_t[None], policy_priority, state.rounds
-    )
-    send_to, recv_from = send_to[0], recv_from[0]  # (P,), the same on every rank
-    n_don = torch.where(send_to >= 0, torch.clamp(pend_t - 1, max=donate_k), 0)
-
-    if not skip_empty_transfer or int((send_to >= 0).sum()) > 0:
-        f2, d_masks, d_sols, d_depths, d_valid = pop_k_shallowest(
-            state.frontier, donate_k, limit=n_don[me:me + 1]
-        )
-        record = torch.cat([d_masks[0], d_sols[0], d_depths[0][:, None]], dim=1)
-        if transfer_pad_words:
-            record = torch.cat(
-                [record, record.new_zeros((donate_k, transfer_pad_words))], dim=1
-            )
-        record = torch.where(d_valid[0][:, None], record, 0)  # (k, REC)
-        my_src = recv_from[me]
-        src = my_src.clamp(0, P - 1).long()
-        if transfer_impl == "gather":
-            got = mesh.all_gather(record[None])[src]  # (P, k, REC) -> my donor's
-            moved_words = P * donate_k * rec_words
+    with span("center.status", dev):
+        pending = pending_per_worker(state.frontier)  # (1,)
+        top_depth = top_priority_depth(state.frontier)
+        if packed_status:
+            word = (pending.clamp(0, 0x7FFF) << 16) | top_depth.clamp(0, 0xFFFF)
+            table = mesh.all_gather(word)  # (P,)
+            pend_t, depth_t = table >> 16, table & 0xFFFF
+            global_best = mesh.all_min(torch.minimum(state.local_best_val, state.best_val))
         else:
-            # unmatched donors write the spare row P, which is dropped
-            buf = record.new_zeros((P + 1, donate_k, rec_words))
-            tgt = torch.where(send_to[me] >= 0, send_to[me], P).long()
-            buf[tgt] = record
-            got = mesh.all_sum(buf[:P])[me]
-            moved_words = n_don.sum(dtype=torch.int32) * rec_words
-        ks = torch.arange(donate_k, device=record.device)
-        recv_valid = (my_src >= 0) & (ks < n_don[src])
-        f3 = push_many(
-            f2, got[None, :, :W], got[None, :, W:2 * W], got[None, :, 2 * W],
-            recv_valid[None],
+            row = torch.stack([pending, top_depth, state.local_best_val], dim=-1)
+            table = mesh.all_gather(row)  # (P, 3)
+            pend_t, depth_t = table[:, 0], table[:, 1]
+            global_best = torch.minimum(table[:, 2].amin(), state.best_val)
+        state = state._replace(best_val=global_best)
+
+    with span("center.match", dev):
+        send_to, recv_from = match_idle_to_donors(
+            pend_t[None], depth_t[None], policy_priority, state.rounds
         )
-        state = state._replace(
-            frontier=f3,
-            tasks_sent=state.tasks_sent + n_don[me],
-            tasks_recv=state.tasks_recv + recv_valid.sum(dtype=torch.int32),
-            transfer_rounds=state.transfer_rounds + 1,
-            payload_words=state.payload_words + moved_words,
-        )
+        send_to, recv_from = send_to[0], recv_from[0]  # (P,), the same on every rank
+        n_don = torch.where(send_to >= 0, torch.clamp(pend_t - 1, max=donate_k), 0)
+        transfer = not skip_empty_transfer or int((send_to >= 0).sum()) > 0
+
+    if transfer:
+        with span("transfer.pop", dev):
+            f2, d_masks, d_sols, d_depths, d_valid = pop_k_shallowest(
+                state.frontier, donate_k, limit=n_don[me:me + 1]
+            )
+            record = torch.cat([d_masks[0], d_sols[0], d_depths[0][:, None]], dim=1)
+            if transfer_pad_words:
+                record = torch.cat(
+                    [record, record.new_zeros((donate_k, transfer_pad_words))], dim=1
+                )
+            record = torch.where(d_valid[0][:, None], record, 0)  # (k, REC)
+        with span("transfer.push", dev):
+            my_src = recv_from[me]
+            src = my_src.clamp(0, P - 1).long()
+            if transfer_impl == "gather":
+                got = mesh.all_gather(record[None])[src]  # (P, k, REC) -> my donor's
+                moved_words = P * donate_k * rec_words
+            else:
+                # unmatched donors write the spare row P, which is dropped
+                buf = record.new_zeros((P + 1, donate_k, rec_words))
+                tgt = torch.where(send_to[me] >= 0, send_to[me], P).long()
+                buf[tgt] = record
+                got = mesh.all_sum(buf[:P])[me]
+                moved_words = n_don.sum(dtype=torch.int32) * rec_words
+            ks = torch.arange(donate_k, device=record.device)
+            recv_valid = (my_src >= 0) & (ks < n_don[src])
+            f3 = push_many(
+                f2, got[None, :, :W], got[None, :, W:2 * W], got[None, :, 2 * W],
+                recv_valid[None],
+            )
+            state = state._replace(
+                frontier=f3,
+                tasks_sent=state.tasks_sent + n_don[me],
+                tasks_recv=state.tasks_recv + recv_valid.sum(dtype=torch.int32),
+                transfer_rounds=state.transfer_rounds + 1,
+                payload_words=state.payload_words + moved_words,
+            )
     state = state._replace(rounds=state.rounds + 1)
-    done = mesh.all_sum(pending_per_worker(state.frontier)) == 0
+    with span("center.done", dev):
+        done = mesh.all_sum(pending_per_worker(state.frontier)) == 0
     return state, done
 
 
@@ -528,27 +555,33 @@ def build_batch_plane_fn(
     def run(datas: ProblemData, worker: WorkerState, done, fpt_bounds=None,
             counters: WorkCounters | None = None):
         B, P = worker.best_val.shape
-        flat = map_state(lambda x: x.reshape(B * P, *x.shape[2:]), worker)
-        done_h = done.cpu().numpy()
-        rounds_delta = np.zeros((B,), np.int32)
-        ran = 0
-        while ran < chunk_rounds and not done_h.all():
-            new, step_done = step(datas, flat, counters=counters)
-            if done_h.any():
-                frozen = done[:, None].expand(B, P).reshape(B * P)
-                flat = map_state(functools.partial(_frozen_where, frozen), flat, new)
-            else:
-                flat = new
-            rounds_delta += ~done_h
-            done = done | step_done
-            if use_fpt:
-                done = done | (flat.best_val.view(B, P)[:, 0] <= fpt_bounds)
-            done_h = done.cpu().numpy()
-            ran += 1
-        if counters is not None:
-            counters.flush()  # the device finished its work at the read of done
-        worker = map_state(lambda x: x.view(B, P, *x.shape[1:]), flat)
-        hot = pending_per_worker(flat.frontier).view(B, P)
+        dev = done.device
+        with span("plane.chunk", dev, lanes=B, workers=P):
+            flat = map_state(lambda x: x.reshape(B * P, *x.shape[2:]), worker)
+            with span("plane.done_read", dev):
+                done_h = done.cpu().numpy()
+            rounds_delta = np.zeros((B,), np.int32)
+            ran = 0
+            while ran < chunk_rounds and not done_h.all():
+                with span("plane.superstep", dev):
+                    new, step_done = step(datas, flat, counters=counters)
+                if done_h.any():
+                    frozen = done[:, None].expand(B, P).reshape(B * P)
+                    with span("plane.freeze", dev):
+                        flat = map_state(functools.partial(_frozen_where, frozen), flat, new)
+                else:
+                    flat = new
+                rounds_delta += ~done_h
+                done = done | step_done
+                if use_fpt:
+                    done = done | (flat.best_val.view(B, P)[:, 0] <= fpt_bounds)
+                with span("plane.done_read", dev):
+                    done_h = done.cpu().numpy()
+                ran += 1
+            if counters is not None:
+                counters.flush()  # the device finished its work at the read of done
+            worker = map_state(lambda x: x.view(B, P, *x.shape[1:]), flat)
+            hot = pending_per_worker(flat.frontier).view(B, P)
         return worker, done, rounds_delta, ran, hot
 
     return run

@@ -26,7 +26,9 @@ for the decode steps:
   ``moe.dispatch``; ``moe.experts``: the three ``bmm`` and the SwiGLU;
   ``moe.combine``), and for Griffin the RG-LRU's (``griffin.rglru``: the
   gates' f32 arithmetic and the scan), each device event given to the range
-  its launch was issued in;
+  its launch was issued in (``launch/profile.py``'s ``range_split``; the
+  ranges are :mod:`repro_torch.telemetry` spans, which the profiler switches
+  on);
 * the hand-written kernels' launches.
 
 The traces go to ``--trace-dir`` (default ``build/repro_torch_profile/``).
@@ -36,7 +38,6 @@ Runs under ``torch.inference_mode()``, as serving does.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import bisect
 import collections
 import json
 import time
@@ -47,7 +48,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import counts
-from repro_torch.launch.profile import DEVICE_CATS, _device_intervals, _union_us
+from repro_torch.launch.profile import _device_intervals, _union_us, range_split
 from repro_torch.launch.serve_lm import cut_depth, prompt_batch
 from repro_torch.models import encdec
 from repro_torch.models.registry import get_model
@@ -61,32 +62,6 @@ def _ranges(cfg) -> tuple:
     if cfg.is_moe:
         return MOE_RANGES
     return GRIFFIN_RANGES if cfg.family == "hybrid" else ()
-
-
-def _range_split(trace: Path, ranges: tuple = MOE_RANGES) -> dict:
-    """Device ms by the profiler range (``record_function``) in ``ranges``
-    (the MoE layers' by default) that issued each device event, matched
-    through the launch's correlation id; events issued outside every such
-    range go to "other"."""
-    events = json.loads(trace.read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") == "user_annotation" and e["name"] in ranges)
-    starts = [s for s, _, _ in spans]
-    issued = {e["args"]["correlation"]: e["ts"] for e in events
-              if e.get("cat") in ("cuda_runtime", "cuda_driver")
-              and "correlation" in e.get("args", {})}
-    ms = collections.Counter()
-    for e in events:
-        if e.get("cat") not in DEVICE_CATS or "dur" not in e:
-            continue
-        ts = issued.get(e.get("args", {}).get("correlation"))
-        name = "other"
-        if ts is not None:
-            i = bisect.bisect_right(starts, ts) - 1
-            if i >= 0 and spans[i][0] <= ts <= spans[i][1]:
-                name = spans[i][2]
-        ms[name] += e["dur"] / 1e3
-    return dict(ms)
 
 
 def _print_split(label: str, split: dict, per: int, ranges: tuple) -> None:
@@ -165,7 +140,7 @@ def main(argv=None) -> None:
     trace = trace_dir / f"{cfg.name}_prefill.json"
     _report("prefill", prof, trace, wall_s, args.top, 1)
     if ranges:
-        _print_split("prefill", _range_split(trace, ranges), 1, ranges)
+        _print_split("prefill", range_split(trace, ranges), 1, ranges)
 
     # a cache holding the prompt, then greedy steps
     cache = model.init_decode_cache(B, P + args.steps + 2, device=dev)
@@ -192,7 +167,7 @@ def main(argv=None) -> None:
     trace = trace_dir / f"{cfg.name}_decode.json"
     _report(f"{args.steps} decode steps", prof, trace, wall_s, args.top, args.steps)
     if ranges:
-        _print_split(f"{args.steps} decode steps", _range_split(trace, ranges), args.steps,
+        _print_split(f"{args.steps} decode steps", range_split(trace, ranges), args.steps,
                      ranges)
 
 

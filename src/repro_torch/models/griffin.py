@@ -38,10 +38,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.telemetry import span
 
 LRU_C = 8.0
 
@@ -139,7 +139,7 @@ def rec_apply(cfg: ModelConfig, p: RecBlock, x: torch.Tensor, *, state: dict | N
     u, conv_state = causal_conv(u, p.conv, st.get("conv"))
     r = torch.sigmoid(u @ p.w_a + p.b_a)
     i = torch.sigmoid(u @ p.w_x + p.b_x)
-    with record_function("griffin.rglru"):
+    with span("griffin.rglru", u.device):
         y, h = rglru(u, r, i, p.lam, st.get("h"))
     return (y * gate) @ p.w_out, {"h": h, "conv": conv_state}
 

@@ -24,9 +24,10 @@ only route of the JAX serving path, which passes ``rules=None``) as
 
 No step waits for the host: C comes from shapes, no boolean mask indexes a
 tensor, and nothing calls ``.item()``.  The four steps run under the
-profiler ranges ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
-``moe.combine`` (``launch/profile_lm.py`` splits the layer's device time by
-them).
+telemetry spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine`` (:mod:`repro_torch.telemetry`: profiler ranges while a
+profiler runs, one check otherwise; ``launch/profile_lm.py`` splits the
+layer's device time by them).
 
 ``moe_apply_ep`` is the port of ``_moe_shard_map``, the expert parallelism
 JAX selects with ``rules["_moe_impl"] == "shard_map"`` and a mesh: each rank
@@ -47,10 +48,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.telemetry import span
 
 
 class MoE(nn.Module):
@@ -159,17 +160,17 @@ def _experts(p, x: torch.Tensor, r: dict, slot, keep, n_rows: int):
     B, S, d = x.shape
     T, K = B * S, r["top_e"].shape[1]
     n_exp = p.w1.shape[0]
-    with record_function("moe.dispatch"):
+    with span("moe.dispatch", x.device):
         buf = x.new_zeros((n_rows + 1, d))  # the last row takes the dropped
         # the gather as an embedding lookup: its gradient adds each token's K
         # copies in a fixed order (an index expression's scatters them with
         # atomic adds on the card, which vary from run to run)
         buf[slot] = F.embedding(r["st"], x.reshape(T, d))
         xe = buf[:n_rows].view(n_exp, n_rows // n_exp, d)
-    with record_function("moe.experts"):
+    with span("moe.experts", x.device):
         h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
         y = torch.bmm(h, p.w2).view(n_rows, d)
-    with record_function("moe.combine"):
+    with span("moe.combine", x.device):
         contrib = y[slot.clamp(max=n_rows - 1)] * r["sp"].to(x.dtype)[:, None]
         contrib = torch.where(keep[:, None], contrib, contrib.new_zeros(()))
         # each token's K rows of the sorted order, ascending: its experts in
@@ -191,7 +192,7 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor):
     if getattr(p, "ep", None) is not None:
         return moe_apply_ep(cfg, p, x, p.ep)
     B, S, d = x.shape
-    with record_function("moe.route"):
+    with span("moe.route", x.device):
         r = route(cfg, p, x)
     out = _experts(p, x, r, r["slot"], r["keep"], cfg.n_experts * r["C"])
     return out.view(B, S, d), r["aux"]
@@ -236,7 +237,7 @@ def moe_apply_ep(cfg: ModelConfig, p, x: torch.Tensor, ep):
         raise ValueError(f"model rank {ep.model.rank} of {M} holds {p.w1.shape[0]} experts, "
                          f"not E/M = {E_loc}")
     x = ep.model.pvary(x)
-    with record_function("moe.route"):
+    with span("moe.route", x.device):
         r = route(cfg, p, x, C=ep_capacity(cfg, Tg), router=ep.model.pvary(p.router))
         C = r["C"]
         counts = ep.data.all_sum(r["counts"].to(r["probs"].dtype))
@@ -246,7 +247,7 @@ def moe_apply_ep(cfg: ModelConfig, p, x: torch.Tensor, ep):
         mine = r["keep"] & (rel >= 0) & (rel < E_loc)
         slot = torch.where(mine, rel * C + r["pos"], E_loc * C)
     out = _experts(p, x, r, slot, mine, E_loc * C)
-    with record_function("moe.collective"):
+    with span("moe.collective", x.device):
         out = ep.model.psum(out)
     return out.view(B, S, d), aux
 

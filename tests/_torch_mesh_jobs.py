@@ -364,3 +364,14 @@ def ep_train_loop(mesh, spec: dict) -> dict:
     gnorms = []
     _, _, losses = train_loop(spec["cfg"], **spec["loop"], device="cpu", ep=ep, gnorms=gnorms)
     return {"grid": [ep.data.size, ep.model.size], "losses": losses, "gnorms": gnorms}
+
+
+def spans_of_solve(mesh, graph: dict, kw: dict) -> dict:
+    """A vertex-cover solve on the mesh under ``telemetry.recording()``: its
+    result and the (name, parent) pairs of the spans this rank recorded."""
+    from repro_torch import telemetry
+
+    telemetry.clear()
+    with telemetry.recording():
+        r = _solve("vertex_cover", graph, kw)
+    return {"result": r, "spans": sorted({(s.name, s.parent) for s in telemetry.spans()})}

@@ -224,10 +224,12 @@ def test_combine_order_is_ascending_expert_in_bf16():
 
 def test_profile_lm_splits_device_time_by_moe_range(tmp_path):
     """``launch/profile_lm.py`` gives each device event to the MoE range its
-    launch was issued in (by correlation id), the rest to "other"."""
+    launch was issued in (by correlation id), the rest to "other", through
+    ``launch/profile.py``'s ``range_split``."""
     import json
 
-    from repro_torch.launch.profile_lm import _range_split
+    from repro_torch.launch.profile import range_split
+    from repro_torch.launch.profile_lm import MOE_RANGES
 
     ev = [
         {"cat": "user_annotation", "name": "moe.route", "ts": 0, "dur": 10},
@@ -244,4 +246,5 @@ def test_profile_lm_splits_device_time_by_moe_range(tmp_path):
     ]
     trace = tmp_path / "t.json"
     trace.write_text(json.dumps({"traceEvents": ev}))
-    assert _range_split(trace) == {"moe.route": 2.0, "moe.experts": 3.0, "other": 0.5}
+    assert range_split(trace, MOE_RANGES) == {"moe.route": 2.0, "moe.experts": 3.0,
+                                              "other": 0.5}
