@@ -9,9 +9,9 @@ dimension, so every op takes and returns ``(P, CAP, ...)`` pools:
   full-capacity sort :func:`pop_deepest` on the reference one;
 * **donate** pops each donor's *shallowest* tasks (Alg. 6, batched) with
   :func:`pop_k_shallowest` (one task: :func:`pop_shallowest`);
-* :func:`push_many` places children into free slots in slot order and
-  counts what it could not place (``dropped``), so saturation is never
-  silent.
+* :func:`push_many_` places children into free slots in slot order, in
+  place, and counts what it could not place (``dropped``), so saturation
+  is never silent; :func:`push_many` is its functional form.
 
 Tie orders are those of the JAX package: among equal depths the lower slot
 wins (``lax.top_k`` order; torch's ``topk`` promises none, so the port uses
@@ -191,41 +191,55 @@ def pop_k_shallowest(f: Frontier, count: int, limit=None):
     )
 
 
-def push_many(f: Frontier, masks, sols, depths, valid) -> Frontier:
-    """Push up to K tasks per worker (``valid`` (P, K) marks real ones).
+def push_many_(f: Frontier, masks, sols, depths, valid) -> Frontier:
+    """Push up to K tasks per worker (``valid`` (P, K) marks real ones)
+    into ``f``'s own tensors, in place; returns ``f``.
 
     Free slots are filled in slot order with the valid tasks in task order;
     tasks beyond the free slots are dropped, setting ``overflow`` and
-    adding the exact count to ``dropped``.  Written as a gather (each free
-    slot of rank r takes the placeable task of rank r) so that no write
-    needs an out-of-range target."""
-    P, cap = f.active.shape
-    K = valid.shape[1]
-    dev = valid.device
-    free = ~f.active
-    free_rank = free.cumsum(dim=-1, dtype=torch.int32) - 1  # (P, CAP)
-    task_rank = valid.cumsum(dim=-1, dtype=torch.int32) - 1  # (P, K)
-    n_free = free.sum(dim=-1, dtype=torch.int32)
-    placeable = valid & (task_rank < n_free[:, None])
-    n_dropped = (valid & ~placeable).sum(dim=-1, dtype=torch.int32)
-    n_place = placeable.sum(dim=-1, dtype=torch.int32)
-    # task index of each placeable rank; column K collects the rest
-    task_of_rank = torch.zeros((P, K + 1), dtype=torch.int64, device=dev)
-    task_of_rank.scatter_(
-        1,
-        torch.where(placeable, task_rank, K).long(),
-        torch.arange(K, device=dev).expand(P, K),
-    )
-    gets = free & (free_rank < n_place[:, None])  # (P, CAP)
-    src = task_of_rank.gather(1, free_rank.clamp(0, max(K - 1, 0)).long())
-    return f._replace(
-        masks=torch.where(gets[..., None], _take(masks, src), f.masks),
-        sols=torch.where(gets[..., None], _take(sols, src), f.sols),
-        depths=torch.where(gets, _take(depths.to(torch.int32), src), f.depths),
-        active=f.active | gets,
-        overflow=f.overflow | (n_dropped > 0),
-        dropped=f.dropped + n_dropped,
-    )
+    adding the exact count to ``dropped``.  The work scales with what is
+    pushed, (P, K, W), and the pool is only read at the K target rows:
+
+    * the r-th valid task goes to the first slot whose running count of
+      free slots reaches r (one ``searchsorted`` per worker over the
+      (P, CAP) counts);
+    * each task adds ``new - old`` into its target row (``scatter_add_``,
+      exact in wrapping int32).  A task that is not placed adds zero to some
+      row (its clamped target), so it writes nothing, needs no out-of-range
+      index and no host sync, whichever rows it shares.
+
+    ``masks``, ``sols``, ``depths`` must not alias ``f``'s tensors."""
+    cap = f.capacity
+    free_count = (~f.active).cumsum(dim=-1, dtype=torch.int32)  # (P, CAP), nondecreasing
+    task_count = valid.cumsum(dim=-1, dtype=torch.int32)  # (P, K)
+    n_free, n_valid = free_count[:, -1:], task_count[:, -1:]
+    placeable = valid & (task_count <= n_free)
+    tgt = torch.searchsorted(free_count, task_count).clamp_(max=cap - 1)  # (P, K)
+
+    def place(pool, rows):  # rows (P, K, ...) into pool (P, CAP, ...)
+        tail = (1,) * (rows.dim() - 2)
+        idx = tgt.view(*tgt.shape, *tail).expand_as(rows)
+        keep = placeable.view(*placeable.shape, *tail)
+        pool.scatter_add_(1, idx, torch.where(keep, rows - pool.gather(1, idx), 0))
+
+    place(f.masks, masks)
+    place(f.sols, sols)
+    place(f.depths, depths.to(torch.int32))
+    # a free slot is taken iff no more free slots than valid tasks reach it;
+    # the valid tasks beyond the free slots are dropped
+    f.active.logical_or_(free_count <= n_valid)
+    n_dropped = (n_valid - n_free).clamp_(min=0)[:, 0]
+    f.overflow.logical_or_(n_dropped > 0)
+    f.dropped.add_(n_dropped)
+    return f
+
+
+def push_many(f: Frontier, masks, sols, depths, valid) -> Frontier:
+    """:func:`push_many_` into a copy of ``f``: ``f`` is left as it was.
+
+    The JAX package writes the same push as a scatter with
+    ``mode="drop"``; this form gives the same pool leaf for leaf."""
+    return push_many_(Frontier(*(x.clone() for x in f)), masks, sols, depths, valid)
 
 
 def push_one(f: Frontier, mask, sol, depth, valid) -> Frontier:

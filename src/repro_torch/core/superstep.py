@@ -73,7 +73,7 @@ from repro_torch.core.frontier import (
     pop_deepest,
     pop_deepest_cheap,
     pop_k_shallowest,
-    push_many,
+    push_many_,
     top_priority_depth,
 )
 from repro_torch.problems.base import (
@@ -143,8 +143,9 @@ def _explore_one_round(
 ) -> WorkerState:
     """Each worker pops up to ``lanes`` deepest tasks; all (B·)P·lanes tasks
     are expanded in one batch (``data`` maps the rows to their instances);
-    children are pushed back per worker.  ``explore_impl`` picks the pop
-    and the expansion (the module docstring); both routes count their
+    children are pushed back per worker, in place into ``state``'s pool
+    (:func:`superstep` hands it its own copy).  ``explore_impl`` picks the
+    pop and the expansion (the module docstring); both routes count their
     reduction sweeps into ``counters``."""
     dev = state.best_sol.device
     with span("explore.pop", dev):
@@ -191,7 +192,7 @@ def _explore_one_round(
         rvalid = expandable & (ex.right_bound.view(P, L) < new_best[:, None])
         nodes = state.nodes_expanded + valid.sum(dim=-1, dtype=torch.int32)
     with span("explore.push", dev):
-        f = push_many(
+        f = push_many_(
             f,
             torch.cat([res.left_mask.view(P, L, W), res.right_mask.view(P, L, W)], 1),
             torch.cat([res.left_sol.view(P, L, W), res.right_sol.view(P, L, W)], 1),
@@ -290,6 +291,10 @@ def superstep(
     done) where done is a (B,) bool tensor: nothing pending anywhere in
     that instance after the transfer phase.
 
+    ``state`` is never written: the superstep copies the frontier once on
+    entry and pushes into that copy in place (the explore rounds' and the
+    receivers' :func:`push_many_`).
+
     ``transfer_pad_words`` is the codec's payload on top of the native
     (mask, sol, depth) record (the basic encoding's n·W words): it counts
     in ``payload_words`` and carries no state.
@@ -313,6 +318,10 @@ def superstep(
 
     def per_worker(x):  # (B,) -> (B·P,)
         return x[:, None].expand(B, P).reshape(BP)
+
+    # every push below writes the frontier in place: into this superstep's
+    # own copy, so the caller's state is never written
+    state = state._replace(frontier=Frontier(*(x.clone() for x in state.frontier)))
 
     # 1. explore
     for _ in range(steps_per_round):
@@ -371,7 +380,7 @@ def superstep(
         recv_valid = (recv_from.reshape(BP) >= 0)[:, None] & (
             ks[None, :] < n_don_w[src][:, None]
         )
-        f3 = push_many(f2, d_masks[src], d_sols[src], d_depths[src], recv_valid)
+        f3 = push_many_(f2, d_masks[src], d_sols[src], d_depths[src], recv_valid)
         if transfer_impl == "gather":
             moved_words = torch.full(
                 (B,), P * donate_k * rec_words, dtype=torch.int32, device=dev
@@ -477,7 +486,7 @@ def _center_on_mesh(
                 moved_words = n_don.sum(dtype=torch.int32) * rec_words
             ks = torch.arange(donate_k, device=record.device)
             recv_valid = (my_src >= 0) & (ks < n_don[src])
-            f3 = push_many(
+            f3 = push_many_(
                 f2, got[None, :, :W], got[None, :, W:2 * W], got[None, :, 2 * W],
                 recv_valid[None],
             )

@@ -7,7 +7,9 @@ Hazards named here:
 * ``lax.top_k`` in ``pop_k_shallowest`` puts the lower slot first among
   equal depths; the port uses a stable argsort;
 * ``push_many`` into a saturated pool drops exactly what does not fit
-  (JAX's ``mode="drop"`` scatter; the port masks explicitly).
+  (JAX's ``mode="drop"`` scatter; the port masks explicitly);
+* ``push_many_`` writes the same pool into ``f``'s own tensors, with no
+  host sync and no temporary of the pool's (P, CAP, W) size.
 """
 
 import jax
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import random_masks, t32, u32
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import frontier as jf
 from repro_torch.core import frontier as tf
@@ -23,12 +26,13 @@ from repro_torch.core import frontier as tf
 P, CAP, W = 5, 16, 2
 
 
-def _pools(seed, fill=None):
-    """JAX and port frontiers holding the same random pools: depths from a
-    small range (many ties), per-worker fill rates, worker 0 empty."""
+def _pools(seed, fill=None, w=W):
+    """JAX and port frontiers holding the same random pools of ``w`` words:
+    depths from a small range (many ties), per-worker fill rates, worker 0
+    empty."""
     rng = np.random.default_rng(seed)
-    masks = random_masks(rng, 64, W, P * CAP).reshape(P, CAP, W)
-    sols = random_masks(rng, 64, W, P * CAP).reshape(P, CAP, W)
+    masks = random_masks(rng, 32 * w, w, P * CAP).reshape(P, CAP, w)
+    sols = random_masks(rng, 32 * w, w, P * CAP).reshape(P, CAP, w)
     depths = rng.integers(0, 4, size=(P, CAP)).astype(np.int32)
     rate = rng.random((P, 1)) if fill is None else np.full((P, 1), fill)
     active = rng.random((P, CAP)) < rate
@@ -109,6 +113,103 @@ def test_push_many_into_saturated_pools(K, seed):
     if K == 20:  # more valid tasks than free slots somewhere
         assert bool(got.overflow.any())
         assert (got.dropped.numpy() > np.asarray(jax_f.dropped)).any()
+
+
+def _children(seed, lead, K, w):
+    """Random (masks, sols, depths, valid) of K tasks a worker, numpy."""
+    rng = np.random.default_rng(seed)
+    T = int(np.prod(lead)) * K
+    return (
+        random_masks(rng, 32 * w, w, T).reshape(*lead, K, w),
+        random_masks(rng, 32 * w, w, T).reshape(*lead, K, w),
+        rng.integers(0, 9, size=(*lead, K)).astype(np.int32),
+        rng.random((*lead, K)) < 0.7,
+    )
+
+
+def _torch_rows(children):
+    masks, sols, depths, valid = children
+    return t32(masks), t32(sols), torch.from_numpy(depths), torch.from_numpy(valid)
+
+
+# K = 1 is the data plane's push (donate_k 1), K = 8 an explore round's
+# (2 children of 4 lanes); fill 0.97 leaves most workers a slot or none
+PUSH_CASES = [
+    (w, K, fill) for w in (1, 19) for K in (1, 8) for fill in (None, 0.97)
+]
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["solo", "batched"])
+@pytest.mark.parametrize("w,K,fill", PUSH_CASES)
+@pytest.mark.parametrize("seed", range(2))
+def test_push_many_in_place_against_jax(w, K, fill, batched, seed):
+    """``push_many_`` writes, into ``f``'s own tensors, the pool that
+    ``push_many`` returns and that JAX's ``push_many`` (vmapped over workers,
+    and over instances for the ``_b`` view) gives, leaf for leaf; the
+    functional ``push_many`` leaves its input as it was."""
+    if batched:
+        jax_f, torch_f = _stacked_pools(500 + seed, 3, fill=fill, w=w)
+        lead, jax_push = (3, P), jax.vmap(jf.push_many_b)
+    else:
+        jax_f, torch_f = _pools(500 + seed, fill=fill, w=w)
+        lead, jax_push = (P,), jax.vmap(jf.push_many)
+    children = _children(seed, lead, K, w)
+    want = jax_push(jax_f, *map(jnp.asarray, children))
+
+    before = [x.clone() for x in torch_f]
+    push = tf.push_many_b if batched else tf.push_many
+    _same_frontier(want, push(torch_f, *_torch_rows(children)))
+    assert all(torch.equal(a, b) for a, b in zip(before, torch_f))
+
+    ptrs = [x.data_ptr() for x in torch_f]
+    flat = tf.Frontier(*(x.reshape(-1, *x.shape[len(lead):]) for x in torch_f))
+    rows = [x.reshape(-1, *x.shape[len(lead):]) for x in _torch_rows(children)]
+    out = tf.push_many_(flat, *rows)
+    assert all(a is b for a, b in zip(out, flat))
+    assert [x.data_ptr() for x in torch_f] == ptrs
+    _same_frontier(want, torch_f)  # written through the flat views
+    if fill is not None and K == 8:  # saturated: some pushes were dropped
+        assert bool(torch_f.overflow.any())
+        assert (torch_f.dropped.numpy() > before[5].numpy()).any()
+
+
+SYNC_OPS = {"nonzero", "_local_scalar_dense", "item", "is_nonzero", "equal",
+            "masked_select", "unique", "_unique2"}
+
+
+class _Ops(TorchDispatchMode):
+    """Records each op's name and the tensors it returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        self.ops.append((func.overloadpacket.__name__,
+                         [x for x in outs if isinstance(x, torch.Tensor)]))
+        return out
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_push_many_in_place_has_no_pool_sized_temporary_or_host_sync(K):
+    """No op of ``push_many_`` makes a tensor of the pool's P·CAP·W elements
+    (the in-place writes return the pool itself) and none reads a value back
+    to the host."""
+    w = 3
+    _, f = _pools(600 + K, w=w)
+    rows = _torch_rows(_children(K, (P,), K, w))
+    pools = {f.masks.data_ptr(), f.sols.data_ptr()}
+    rec = _Ops()
+    with rec:
+        tf.push_many_(f, *rows)
+    names = [name for name, _ in rec.ops]
+    assert "scatter_add_" in names
+    assert not SYNC_OPS & set(names), names
+    big = [(name, tuple(x.shape)) for name, outs in rec.ops for x in outs
+           if x.numel() >= P * CAP * w and x.data_ptr() not in pools]
+    assert not big, big
 
 
 # -- the helpers of the reference explore path and the batched views ----------
@@ -249,9 +350,9 @@ def test_multiset_conservation_against_jax(seed):
         assert tf.pending_per_worker(torch_f).tolist() == [len(m) for m in model]
 
 
-def _stacked_pools(seed, Bn=3):
+def _stacked_pools(seed, Bn=3, fill=None, w=W):
     """(B, P, CAP) pools of both packages: B independent random pools."""
-    pairs = [_pools(seed * 10 + b) for b in range(Bn)]
+    pairs = [_pools(seed * 10 + b, fill=fill, w=w) for b in range(Bn)]
     jax_f = jax.tree.map(lambda *xs: jnp.stack(xs), *[p[0] for p in pairs])
     torch_f = tf.Frontier(*(torch.stack(xs) for xs in zip(*[p[1] for p in pairs])))
     return jax_f, torch_f

@@ -140,3 +140,88 @@ def test_terminal_ties_take_the_first_lane():
     )
     assert_flat_equal(jss.worker_state_to_flat(want), tss.worker_state_to_flat(got))
     assert (tss.worker_state_to_flat(got)["worker.best_sol"][:, 0] == 0b0011).all()
+
+
+# -- the superstep owns what it writes --------------------------------------------
+# Every push inside a superstep writes the frontier in place, into the copy the
+# superstep takes on entry: its input is never written, so the chunk runner's
+# freeze, snapshots and the state read between supersteps stay valid.
+
+
+def _leaves(state):
+    return [*state.frontier, *state[1:]]
+
+
+def _unchanged(before, state):
+    return all(torch.equal(a, b) for a, b in zip(before, _leaves(state)))
+
+
+def _lane_state(graphs, P, W):
+    """A (B, P, ...) startup-scattered lane state of ``graphs`` on the CPU."""
+    from repro_torch.core import engine as torch_engine
+
+    spec = get_torch_problem("vertex_cover")
+    cap = 4 * max(g.n for g in graphs) + 8
+    bests = [g.n + 1 for g in graphs]
+    return torch_engine._make_batch_state(spec, graphs, P, cap, W, bests, "cpu")
+
+
+@pytest.mark.parametrize("explore_impl", ["fused", "reference"])
+def test_superstep_never_writes_its_input(explore_impl):
+    g = erdos_renyi(N, 0.2, 7)
+    spec = get_torch_problem("vertex_cover")
+    state = tss.worker_state_from_flat(_random_state_flat(11), "cpu")
+    before = [x.clone() for x in _leaves(state)]
+    new, _ = tss.superstep(
+        spec, torch_make_data(spec, g, "cpu"), state, steps_per_round=2, lanes=2,
+        donate_k=3, explore_impl=explore_impl,
+    )
+    assert _unchanged(before, state)
+    assert int(new.nodes_expanded.sum()) > 0 and int(new.tasks_sent.sum()) > 0
+    assert not torch.equal(new.frontier.masks, state.frontier.masks)
+
+
+def test_batch_plane_never_writes_its_input():
+    from repro_torch.problems import base as tb
+
+    graphs = [erdos_renyi(n, 0.3, 40 + n) for n in (22, 28)]
+    spec = get_torch_problem("vertex_cover")
+    worker = _lane_state(graphs, 4, W)
+    done = torch.zeros((2,), dtype=torch.bool)
+    before = [x.clone() for x in _leaves(worker)]
+    plane = tss.build_batch_plane_fn(spec, steps_per_round=2, lanes=2, chunk_rounds=3)
+    new, _, _, ran, _ = plane(tb.make_batch_data(spec, graphs, 28, W, "cpu"), worker, done)
+    assert ran == 3 and _unchanged(before, worker)
+    assert not torch.equal(new.frontier.masks, worker.frontier.masks)
+
+
+@pytest.mark.parametrize("fpt", [False, True], ids=["quiescent", "fpt"])
+def test_frozen_lane_keeps_the_state_it_finished_with(fpt):
+    """Lane 0 (a small graph) finishes partway through a chunk in which lane 1
+    keeps stepping: after the chunk, lane 0's leaves are its state at the
+    superstep it finished, as one-superstep chunks give it.  Under FPT lane 0
+    finishes at its second cover, with tasks still pending in its pools."""
+    from repro_torch.problems import base as tb
+
+    graphs = [erdos_renyi(20, 0.3, 3), erdos_renyi(30, 0.3, 4)]
+    spec = get_torch_problem("vertex_cover")
+    datas = tb.make_batch_data(spec, graphs, 30, W, "cpu")
+    knobs = dict(steps_per_round=1, lanes=1, use_fpt=fpt)
+    bounds = torch.tensor([13, -1], dtype=torch.int32) if fpt else None
+    start = _lane_state(graphs, 4, W)
+
+    one = tss.build_batch_plane_fn(spec, chunk_rounds=1, **knobs)
+    worker, done, finished_at = start, torch.zeros((2,), dtype=torch.bool), 0
+    while not bool(done[0]):
+        worker, done, _, _, _ = one(datas, worker, done, bounds)
+        finished_at += 1
+    at_finish = [x[0].clone() for x in _leaves(worker)]
+    assert not bool(done[1]) and finished_at > 1
+    assert bool(worker.frontier.active[0].any()) == fpt
+
+    chunk = tss.build_batch_plane_fn(spec, chunk_rounds=finished_at + 3, **knobs)
+    worker, done, delta, ran, _ = chunk(
+        datas, start, torch.zeros((2,), dtype=torch.bool), bounds
+    )
+    assert ran > finished_at and delta.tolist()[0] == finished_at
+    assert all(torch.equal(a, b[0]) for a, b in zip(at_finish, _leaves(worker)))
